@@ -1,0 +1,78 @@
+"""Command-line interface of the PyTorch port.
+
+``selfplay`` runs self-play games with a randomly initialized net and prints
+the statistics as JSON; its flags are those of the JAX CLI's ``selfplay``
+plus ``--device``::
+
+    python -m alphazeroforhnefatafl_tpu_torch.cli selfplay --preset copenhagen \\
+        --channels 64 --blocks 6 --sims 128
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+
+def cmd_selfplay(args):
+    import torch
+
+    from .core.env import make_env
+    from .models.network import init_params, make_network
+    from .search.mcts import MCTSConfig
+    from .train.replay import ReplayBuffer
+    from .train.selfplay import SelfPlayActor, SelfPlayConfig
+
+    device = torch.device("cpu" if args.cpu else args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: CUDA is not available (use --device cpu)")
+    env = make_env(args.preset, device)
+    net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm)
+    init_params(net, torch.Generator().manual_seed(args.seed))
+    net = net.to(device).eval()
+    sp_cfg = SelfPlayConfig(batch_size=args.batch)
+    mcts_cfg = MCTSConfig(num_simulations=args.sims)
+    actor = SelfPlayActor(env, net, mcts_cfg, sp_cfg, device=device)
+    replay = ReplayBuffer(env, 100_000, sp_cfg.policy_k)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    stats = actor.play(replay, generator, args.games)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    d = stats.as_dict()
+    d["wall_s"] = round(dt, 2)
+    d["games_per_hour"] = round(stats.games / dt * 3600, 1)
+    d["moves_per_s"] = round(actor.moves_played * args.batch / dt, 1)
+    d["sims_per_s"] = round(actor.moves_played * args.batch * args.sims / dt, 1)
+    d["device"] = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(json.dumps(d, indent=2))
+
+
+def main(argv=None):
+    from alphazeroforhnefatafl_tpu.core.rules import PRESETS
+
+    parser = argparse.ArgumentParser(prog="alphazeroforhnefatafl_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("selfplay", help="run self-play games")
+    p.add_argument("--preset", default="brandubh", choices=sorted(PRESETS.keys()))
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--cpu", action="store_true", help="same as --device cpu")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--games", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--sims", type=int, default=32)
+    p.add_argument("--channels", type=int, default=32)
+    p.add_argument("--blocks", type=int, default=3)
+    p.add_argument("--norm", default="group", choices=["group", "none"])
+    p.set_defaults(fn=cmd_selfplay)
+
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

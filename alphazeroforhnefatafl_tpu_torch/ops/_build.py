@@ -1,0 +1,106 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, on first use, and loaded with
+``ctypes``. The library lands in ``_kernels/`` beside ``csrc/`` (listed in
+``.gitignore``), under a name keyed by a hash of the sources and the flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise KernelBuildError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    cu, cuh = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in cu + cuh:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libtafl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the sources if their library is not built yet.
+
+    Returns (library path, build seconds, nvcc's stderr); seconds is 0 and
+    the log empty when the library was already there.
+    """
+    out = library_path()
+    if out.exists():
+        return out, 0.0, ""
+    cu, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out, seconds, proc.stderr
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    lib.tafl_legal_mask.argtypes = [p, p, p, i, p, i, p, p]
+    lib.tafl_legal_mask.restype = i
+    lib.tafl_step.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, p, p, p, p, p]
+    lib.tafl_step.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    path, _, _ = build()
+    return _declare(ctypes.CDLL(str(path)))
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
