@@ -52,7 +52,7 @@ def cmd_selfplay(args):
 
 
 def main(argv=None):
-    from alphazeroforhnefatafl_tpu.core.rules import PRESETS
+    from .core.rules import PRESETS
 
     parser = argparse.ArgumentParser(prog="alphazeroforhnefatafl_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)

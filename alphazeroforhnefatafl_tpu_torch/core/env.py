@@ -19,8 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from alphazeroforhnefatafl_tpu.core.fen import board_from_fen
-from alphazeroforhnefatafl_tpu.core.rules import (
+from .fen import board_from_fen
+from .rules import (
     CELL_ATT,
     CELL_DEF,
     CELL_KING,
@@ -131,15 +131,20 @@ class TaflEnv:
     """A tafl environment for one ruleset and starting board, on one device.
 
     The static tables are numpy arrays; the ops modules keep their device
-    copies in ``self.cache``, keyed by device.
+    copies in ``self.cache``, keyed by device. The env lives on the CUDA
+    card unless the caller asks for ``device="cpu"``, and raises when it is
+    to live on a card and there is none.
     """
 
-    def __init__(self, rules: Ruleset, start_board_fen: str, device="cpu"):
+    def __init__(self, rules: Ruleset, start_board_fen: str, device="cuda"):
         self.rules = rules
         self._start_fen = start_board_fen
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("TaflEnv(device='cuda'): CUDA is not available")
+            raise RuntimeError(
+                f"TaflEnv(device={str(self.device)!r}): CUDA is not available; "
+                "pass device='cpu' to run on the CPU"
+            )
         start = board_from_fen(start_board_fen)
         self.n = n = int(start.shape[0])
         self.num_actions = n * n * 4 * (n - 1)
@@ -341,12 +346,13 @@ class TaflEnv:
 
 @functools.lru_cache(maxsize=None)
 def _make_env_cached(preset: str, device: str) -> TaflEnv:
-    from alphazeroforhnefatafl_tpu.core.rules import PRESETS
+    from .rules import PRESETS
 
     rules, board = PRESETS[preset]
     return TaflEnv(rules, board, device)
 
 
-def make_env(preset: str, device="cpu") -> TaflEnv:
-    """An env for a named preset (``rules.PRESETS``) on ``device``."""
+def make_env(preset: str, device="cuda") -> TaflEnv:
+    """An env for a named preset (``rules.PRESETS``) on ``device``: the CUDA
+    card unless the caller asks for ``"cpu"``; raises without CUDA."""
     return _make_env_cached(preset, str(torch.device(device)))

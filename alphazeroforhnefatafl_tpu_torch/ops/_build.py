@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, on first use, and loaded with
-``ctypes``. The library lands in ``_kernels/`` beside ``csrc/`` (listed in
+Every ``csrc/*.cu`` file is compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) and linked into one shared
+library with a plain C interface, on first use, and loaded with ``ctypes``.
+The library lands in ``_kernels/`` beside ``csrc/`` (listed in
 ``.gitignore``), under a name keyed by a hash of the sources and the flags,
 so an edited source is rebuilt and an unchanged one is loaded as it is.
 """
@@ -25,7 +26,7 @@ BUILD_DIR = PACKAGE_DIR / "_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -68,27 +69,42 @@ def build() -> tuple[Path, float, str]:
         return out, 0.0, ""
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, seconds, proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objects = [str(Path(work) / f"{src.stem}.o") for src in cu]
+        compiles = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                        for src, obj in zip(cu, objects))
+        ]
+        log = ""
+        failed = None
+        for cmd, proc in compiles:  # wait for every compile, then report the first failure
+            _, err = proc.communicate()
+            log += err
+            if proc.returncode != 0 and failed is None:
+                failed = (proc.returncode, cmd, err)
+        if failed is None:
+            tmp = str(Path(work) / "lib.so")
+            cmd = [nvcc, "-shared", "-o", tmp, *objects]
+            link = subprocess.run(cmd, capture_output=True, text=True)
+            log += link.stderr
+            if link.returncode != 0:
+                failed = (link.returncode, cmd, link.stderr)
+        if failed is not None:
+            code, cmd, err = failed
+            raise KernelBuildError(f"nvcc failed ({code}): {' '.join(cmd)}\n{err}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out, time.perf_counter() - t0, log
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.tafl_legal_mask.argtypes = [p, p, p, i, p, i, p, p]
+    lib.tafl_legal_mask.argtypes = [p, p, p, p, i, p, p]
     lib.tafl_legal_mask.restype = i
-    lib.tafl_step.argtypes = [p, p, p, p, p, p, p, p, p, i, p, i, p, p, p, p, p]
+    lib.tafl_step.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, p, p, p, p]
     lib.tafl_step.restype = i
     return lib
 

@@ -2,16 +2,18 @@
 
 Replaces the Pallas TPU kernel of ``alphazeroforhnefatafl_tpu/ops/legal_mask.py``
 (``_build_kernel``, entry ``batched_legal_mask``) with the CUDA kernel in
-``csrc/legal_mask.cu``: one thread per (game, cell) walks the four rays of the
-piece on its cell and writes that cell's ``4 * (N - 1)`` bytes of the
-``bool[B, A]`` mask, in action order.
+``csrc/legal_mask.cu``.
 
-What bounds it on the H100: the output store. A game's mask is ``A`` bytes
-(4840 at 11x11) against a 121-byte board, and each output byte costs a
-handful of L1-cached board reads and compares, so the kernel is a stream of
-``B * A`` bytes out. The design writes each thread's row contiguously, so a
-warp's stores together cover one contiguous span, though each store
-instruction writes single bytes ``4 * (N - 1)`` apart.
+What bounds it on the H100: bytes, nearly all of them the output. A game's
+mask is ``A`` bytes (4840 at 11x11) against a 121-byte board and there is no
+arithmetic to speak of, so the least time is ``B * (A + N * N + 4)`` bytes
+over the card's memory rate; below about a thousand games the launch and the
+kernel's chain of dependent steps decide its time instead. The design serves
+a group of consecutive games per CTA, one warp each: the warp holds the
+board as row bit masks (lane = row), gets each moving piece's reach from one
+find-first-set on its row's or column's mask, and writes the few legal bytes
+into the group's span of the mask, staged zero-filled in shared memory; the
+span then leaves in one bulk copy from shared to global memory.
 
 :func:`legal_mask_plain` is the plain PyTorch version of the same function;
 :func:`batched_legal_mask` dispatches on the device of its input.
@@ -32,7 +34,7 @@ from . import _build
 EMPTY, CELL_ATT, CELL_DEF, CELL_KING = 0, 1, 2, 3
 PIECE_SIDES = (0, 1, 1)  # attacker soldier, defender soldier, king
 
-# Columns of the move table (csrc/tafl_common.cuh TAFL_COL_MOVE_*).
+# Columns of the plain version's move table.
 MOVE_COLS = 6
 
 
@@ -142,18 +144,6 @@ def legal_mask_plain(env, boards: torch.Tensor, sides: torch.Tensor) -> torch.Te
     return out.reshape(B, env.num_actions)
 
 
-def _cuda_args(env, device):
-    """Kernel 1's table on ``device`` and its rule switches."""
-    from .step_kernel import params_struct
-
-    def build(dev):
-        mt = _move_tables(env)
-        table = torch.as_tensor(mt.table, dtype=torch.int32, device=dev).contiguous()
-        return table, params_struct(env)
-
-    return env.cached("legal_mask_cuda", device, build)
-
-
 def batched_legal_mask(env, boards: torch.Tensor, sides: torch.Tensor) -> torch.Tensor:
     """Legal-action mask ``bool[B, A]`` of ``sides`` on ``boards``.
 
@@ -172,13 +162,15 @@ def batched_legal_mask(env, boards: torch.Tensor, sides: torch.Tensor) -> torch.
         raise ValueError("sides must be int32[B] on the boards' device")
     boards = boards.contiguous()
     sides = sides.contiguous()
-    table, params = _cuda_args(env, boards.device)
+    from .step_kernel import cuda_args
+
+    tab, params = cuda_args(env, boards.device)
     lib = _build.load_library()
     out = torch.empty((B, env.num_actions), dtype=torch.bool, device=boards.device)
     stream = torch.cuda.current_stream(boards.device).cuda_stream
     rc = lib.tafl_legal_mask(
-        boards.data_ptr(), sides.data_ptr(), table.data_ptr(), table.shape[1],
-        ctypes.addressof(params), B, out.data_ptr(), stream,
+        boards.data_ptr(), sides.data_ptr(), tab.data_ptr(), ctypes.addressof(params),
+        B, out.data_ptr(), stream,
     )
     _build.check(rc, "tafl_legal_mask")
     batched_legal_mask.launches += 1

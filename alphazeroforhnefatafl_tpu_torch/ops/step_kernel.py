@@ -7,11 +7,17 @@ decode and move, custodian and shieldwall captures, the surround-win and
 exit-fort floods, the next player's legal mask (also the NoPlays check), the
 repetition ring and the outcome priority select.
 
-What bounds it on the H100: latency. A game reads ~150 bytes and writes
-~5 KB, but the floods and the shieldwall walk are chains of dependent steps.
-The kernel runs one CTA per game with one thread per cell and the board in
-shared memory, so each step is a shared-memory pass behind a block barrier,
-and many games share each SM to hide those barriers.
+What bounds it on the H100: bytes. At 11x11 a game reads 163 bytes and writes
+5178 (two boards, the 4840-byte mask, 24 scalars) with no arithmetic to speak
+of; what stands between the kernel and that bound is the latency of a step's
+dependent phases at small batches and their instruction count at large ones.
+The kernel runs one warp per game with the board in registers as row bit
+masks (lane = row), so every phase is warp votes, shuffles and bit
+arithmetic with no block barrier: a ray or a shieldwall run ends at the
+nearest set bit of a mask, a flood fill grows whole rows per iteration, and
+a flood whose seed is empty is skipped. The next player's mask is staged in
+shared memory for the CTA's group of games and leaves in one bulk copy
+(``csrc/tafl_common.cuh``).
 
 :func:`step_plain` is the plain PyTorch version of the same function and is
 the port's env array phase on the CPU; :func:`step_arrays` dispatches on the
@@ -26,8 +32,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from alphazeroforhnefatafl_tpu.core.rules import PIECE_CLASSES, KingAttack, KingStrength
-
+from ..core.rules import PIECE_CLASSES, KingAttack, KingStrength
 from . import _build
 from .legal_mask import (
     CELL_ATT,
@@ -41,7 +46,7 @@ from .legal_mask import (
 
 DRDC = ((-1, 0), (1, 0), (0, -1), (0, 1))  # up, down, left, right
 
-# Table columns after the move columns (csrc/tafl_common.cuh TAFL_COL_*).
+# Columns of the plain version's per-cell table, after the move columns.
 COL_SPECIAL_HOSTILE = 6  # + piece class
 COL_CLS_OCC = 9  # + piece class
 COL_CORNER = 12
@@ -61,33 +66,64 @@ SCALAR_INDEX = {name: i for i, name in enumerate(SCALAR_ROWS)}
 
 
 class TaflParams(ctypes.Structure):
-    """The rule switches (csrc/tafl_common.cuh ``TaflParams``)."""
+    """The rule switches (csrc/tafl_common.cuh ``TaflParams``). Per-class
+    facts are bit fields, bit ``cls`` for piece class ``cls``."""
 
     _fields_ = [
-        ("n", ctypes.c_int),
-        ("num_move_classes", ctypes.c_int),
-        ("move_max_dist", ctypes.c_int * 3),
-        ("move_cls_of_code", ctypes.c_int * 4),
-        ("thr_flat", ctypes.c_int),
-        ("king_attacks", ctypes.c_int),
-        ("king_hostile_when_enemy", ctypes.c_int),
-        ("king_strength", ctypes.c_int),
-        ("special_rules_on", ctypes.c_int),
-        ("linnaean", ctypes.c_int),
-        ("enclosure_win", ctypes.c_int),
-        ("exit_fort", ctypes.c_int),
-        ("sw_on", ctypes.c_int),
-        ("sw_caps", ctypes.c_int * 3),
-        ("edge_hostile", ctypes.c_int * 3),
-        ("edge_escape", ctypes.c_int),
-        ("rep_n", ctypes.c_int),
-        ("rep_is_loss", ctypes.c_int),
-        ("draw_on_no_plays", ctypes.c_int),
+        (name, ctypes.c_int)
+        for name in (
+            "n", "thr_r", "thr_c", "slow_bits", "king_attacks",
+            "king_hostile_when_enemy", "king_strength", "special_rules_on",
+            "linnaean", "enclosure_win", "exit_fort", "sw_on", "sw_caps_bits",
+            "sw_corners_close", "edge_hostile_bits", "edge_escape", "rep_n",
+            "rep_is_loss", "draw_on_no_plays",
+        )
     ]
 
 
+# Planes of the kernels' rule table (csrc/tafl_common.cuh TAFL_PL_*), each
+# followed by its piece class where it has three.
+PL_OCC_ROW = 0
+PL_PASS_ROW = 3
+PL_OCC_COL = 6
+PL_PASS_COL = 9
+PL_HOSTILE_ROW = 12
+PL_CORNER_ROW = 15
+PL_EDGE_ROW = 16
+NUM_PLANES = 17
+
+
+def _pack_rows(plane: np.ndarray) -> np.ndarray:
+    """``bool[n, n]`` -> ``uint32[32]``: word i is row i, bit c column c."""
+    n = plane.shape[0]
+    out = np.zeros(32, dtype=np.uint32)
+    out[:n] = (plane.astype(np.uint32) << np.arange(n, dtype=np.uint32)[None, :]).sum(1)
+    return out
+
+
+def _bit_planes(env) -> np.ndarray:
+    """The kernels' rule table ``uint32[NUM_PLANES, 32]``: every per-cell rule
+    fact as one bit mask per row, and the movement facts per column too."""
+    n = env.n
+    if n > 21:
+        raise ValueError(f"the CUDA kernels take boards up to 21x21, got {n}x{n}")
+    tab = np.zeros((NUM_PLANES, 32), dtype=np.uint32)
+    for c, cfg in enumerate(env.cls_cfg):
+        occupiable = env._occupiable[c]
+        passable = ~(env.throne_mask & cfg.throne_pass_blocked)
+        tab[PL_OCC_ROW + c] = _pack_rows(occupiable)
+        tab[PL_PASS_ROW + c] = _pack_rows(passable)
+        tab[PL_OCC_COL + c] = _pack_rows(occupiable.T)
+        tab[PL_PASS_COL + c] = _pack_rows(passable.T)
+        tab[PL_HOSTILE_ROW + c] = _pack_rows(env._special_hostile[c])
+    tab[PL_CORNER_ROW] = _pack_rows(env.corner_mask)
+    tab[PL_EDGE_ROW] = _pack_rows(env.edge_mask)
+    return tab
+
+
 def _static_tables(env) -> Tuple[np.ndarray, dict]:
-    """The per-cell rule table ``int32[nn, NUM_COLS]`` and the rule switches."""
+    """The plain version's per-cell rule table ``int32[nn, NUM_COLS]`` and the
+    rule switches."""
     rules = env.rules
     n = env.n
     nn = n * n
@@ -105,9 +141,6 @@ def _static_tables(env) -> Tuple[np.ndarray, dict]:
     rep = rules.repetition_rule
     static = dict(
         n=n,
-        num_move_classes=mt.num_classes,
-        move_max_dist=mt.max_dist,
-        move_cls_of_code=mt.cls_of_code,
         thr_flat=thr_r * n + thr_c,
         king_attacks=rules.king_attack in (KingAttack.ARMED, KingAttack.HAMMER),
         king_hostile_when_enemy=rules.king_attack in (KingAttack.ARMED, KingAttack.ANVIL),
@@ -130,16 +163,26 @@ def _static_tables(env) -> Tuple[np.ndarray, dict]:
     return table, static
 
 
+def _bits(flags) -> int:
+    return sum(int(bool(f)) << i for i, f in enumerate(flags))
+
+
 def params_struct(env) -> TaflParams:
     """The env's rule switches as the kernels' C struct."""
     _, st = _static_tables(env)
+    sw = env.rules.shieldwall
+    thr_r, thr_c = env.throne
+    derived = dict(
+        thr_r=thr_r,
+        thr_c=thr_c,
+        slow_bits=_bits(cfg.slow for cfg in env.cls_cfg),
+        sw_caps_bits=_bits(st["sw_caps"]),
+        sw_corners_close=bool(sw is not None and sw.corners_may_close),
+        edge_hostile_bits=_bits(st["edge_hostile"]),
+    )
     p = TaflParams()
     for name, _ in TaflParams._fields_:
-        v = st[name]
-        if isinstance(v, tuple):
-            getattr(p, name)[:] = [int(x) for x in v]
-        else:
-            setattr(p, name, int(v))
+        setattr(p, name, int(derived[name] if name in derived else st[name]))
     return p
 
 
@@ -495,12 +538,14 @@ def step_plain(env, boards, sides, actions, recent_plays, rep_first_i, reps,
 # ----------------------------------------------------------------------
 
 
-def _cuda_args(env, device):
-    def build(dev):
-        table, _ = _static_tables(env)
-        return torch.as_tensor(table, dtype=torch.int32, device=dev).contiguous(), params_struct(env)
+def cuda_args(env, device):
+    """The kernels' rule table on ``device`` and their rule switches."""
 
-    return env.cached("step_cuda", device, build)
+    def build(dev):
+        tab = torch.as_tensor(_bit_planes(env).view(np.int32), device=dev).contiguous()
+        return tab, params_struct(env)
+
+    return env.cached("kernel_args", device, build)
 
 
 def _check(name, t, dtype, shape, device):
@@ -540,7 +585,7 @@ def step_arrays(env, boards, sides, actions, recent_plays, rep_first_i, reps,
     reps = _check("reps", reps, i32, (B, 2), dev)
     mid_pair = _check("mid_pair", mid_pair, torch.bool, (B, 2), dev)
     psc = _check("plays_since_capture", plays_since_capture, i32, (B,), dev)
-    table, params = _cuda_args(env, dev)
+    tab, params = cuda_args(env, dev)
     lib = _build.load_library()
     board3 = torch.empty((B, n, n), dtype=torch.int8, device=dev)
     cap = torch.empty((B, n, n), dtype=torch.bool, device=dev)
@@ -550,9 +595,9 @@ def step_arrays(env, boards, sides, actions, recent_plays, rep_first_i, reps,
     rc = lib.tafl_step(
         boards.data_ptr(), sides.data_ptr(), actions.data_ptr(),
         recent_plays.data_ptr(), rep_first_i.data_ptr(), reps.data_ptr(),
-        mid_pair.data_ptr(), psc.data_ptr(), table.data_ptr(), table.shape[1],
-        ctypes.addressof(params), B, board3.data_ptr(), cap.data_ptr(),
-        next_mask.data_ptr(), scal.data_ptr(), stream,
+        mid_pair.data_ptr(), psc.data_ptr(), tab.data_ptr(),
+        ctypes.addressof(params), B, board3.data_ptr(),
+        cap.data_ptr(), next_mask.data_ptr(), scal.data_ptr(), stream,
     )
     _build.check(rc, "tafl_step")
     step_arrays.launches += 1

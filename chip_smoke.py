@@ -8,10 +8,21 @@ Phases, in order; any failure exits non-zero:
 2. build both CUDA kernels from ``alphazeroforhnefatafl_tpu_torch/csrc``;
 3. kernel 1 (legal mask) against its plain PyTorch version on the card,
    bit for bit: Copenhagen playout states and dense random boards at
-   B=4096, every preset at B=256, and 15x15 and 21x21 board batches;
+   B=4096, every preset at B=256, and 15x15 and 21x21 board batches; then
+   the cases that a kernel serving a group of games per CTA makes risky:
+   batches that the group does not divide (B = 1, 3, 257, odd batches of
+   the 7x7 and 9x9 presets), 19x19 boards (whose groups of three start off
+   a 16-byte boundary), games with no legal move, boards full of one side's
+   pieces, and constructed shieldwalls, enclosures, exit forts and king
+   captures beside the throne (``tests/test_torch_cases.py``) on every
+   preset and on 15x15, 19x19 and 21x21 boards;
 4. kernel 2 (env step) against its plain version on the same inputs, field
    for field over every output, the 24 scalar rows included; then the time
-   of each kernel beside its plain version at the self-play shapes;
+   of each kernel beside its plain version at the self-play shapes, with
+   the least time the card could take for the same bytes (each input read
+   once, each output written once, at 3.35 TB/s) and the share of that
+   bound the kernel reaches; B=1 is timed too, as what a launch of either
+   kernel costs with next to no work in it;
 5. self-play at full width: 11x11 Copenhagen, a 64-channel 6-block
    GroupNorm net with a bf16 trunk and random weights from a seed,
    ``MCTSConfig()`` (128 simulations, 128 children), 256 games of at most 8
@@ -30,11 +41,13 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 SEED = 0
 PRESETS = ("brandubh", "copenhagen", "koch", "magpie", "tablut")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 
 
 def fail(msg: str) -> None:
@@ -135,6 +148,9 @@ def phase_kernels(device, checker):
 
     from alphazeroforhnefatafl_tpu_torch.core.env import TaflEnv, make_env
 
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from test_torch_cases import constructed_cases
+
     gen = torch.Generator(device=device).manual_seed(SEED)
     rng = np.random.RandomState(SEED)
 
@@ -156,11 +172,64 @@ def phase_kernels(device, checker):
         env = make_env(preset, device)
         playout_states(env, 256, 24, gen, checker, f"{preset} B=256 playout")
         dense_case(env, 256, f"{preset} B=256 dense")
+    big = {}
     for n in (15, 21):
         # Copenhagen rules on an n x n board (the start board is empty; the
         # dense boards replace it).
-        env = TaflEnv(cph.rules, "/".join([str(n)] * n), device)
+        big[n] = env = TaflEnv(cph.rules, "/".join([str(n)] * n), device)
         dense_case(env, 256, f"copenhagen rules {n}x{n}")
+
+    # Batches that the group of four games per CTA does not divide.
+    for B in (1, 3, 257):
+        playout_states(cph, B, 6, gen, checker, f"copenhagen B={B} playout")
+        dense_case(cph, B, f"copenhagen B={B} dense")
+    for preset, B in (("brandubh", 255), ("tablut", 129)):
+        env = make_env(preset, device)
+        playout_states(env, B, 6, gen, checker, f"{preset} B={B} playout")
+        dense_case(env, B, f"{preset} B={B} dense")
+    dense_case(big[15], 5, "copenhagen rules 15x15 B=5")
+    dense_case(big[21], 3, "copenhagen rules 21x21 B=3")
+    # At 19x19 three games fit a CTA's staging memory and their masks span a
+    # number of bytes that 16 does not divide: every other CTA's span starts
+    # 8 bytes off a 16-byte boundary and its head leaves byte by byte.
+    big[19] = TaflEnv(cph.rules, "/".join(["19"] * 19), device)
+    dense_case(big[19], 64, "copenhagen rules 19x19 B=64")
+    dense_case(big[19], 7, "copenhagen rules 19x19 B=7")
+
+    def board_case(env, boards, what):
+        """The same boards with either side to move."""
+        B = boards.shape[0]
+        for side in (0, 1):
+            states = env.reset_batch(B).replace(
+                board=torch.as_tensor(boards, device=device),
+                side_to_play=torch.full((B,), side, dtype=torch.int32, device=device),
+            )
+            actions = random_actions(env.legal_mask_many(states), gen)
+            checker.check(env, states, actions, f"{what} side {side}")
+
+    # No legal move for either side (a checkerboard of the two sides), and
+    # boards full of one side's pieces.
+    for env in (cph, make_env("brandubh", device), big[21]):
+        n = env.n
+        rr, cc = np.indices((n, n))
+        checker_board = np.where((rr + cc) % 2 == 0, 1, 2).astype(np.int8)
+        board_case(env, np.repeat(checker_board[None], 7, 0), f"{n}x{n} no legal move")
+        for code in (1, 2):
+            board_case(env, np.full((7, n, n), code, np.int8), f"{n}x{n} full of {code}")
+
+    # Constructed shieldwalls, enclosures, exit forts and king captures.
+    def constructed(env, B, what):
+        boards, sides, actions = constructed_cases(rng, env.n, B)
+        states = env.reset_batch(B).replace(
+            board=torch.as_tensor(boards, device=device),
+            side_to_play=torch.as_tensor(sides, device=device),
+        )
+        checker.check(env, states, torch.as_tensor(actions, device=device), what)
+
+    for preset in PRESETS:
+        constructed(make_env(preset, device), 1001, f"{preset} constructed B=1001")
+    for n in (15, 19, 21):
+        constructed(big[n], 251, f"copenhagen rules {n}x{n} constructed")
     print(f"kernels: {checker.cases} cases bit-exact against the plain versions "
           f"(max_abs_err legal_mask={checker.err['legal_mask']} step={checker.err['step']})",
           flush=True)
@@ -193,36 +262,62 @@ def time_ms(fn, reps=20, device_only=False):
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(device, checker):
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def timing_case(env, B, gen, checker):
+    """Copenhagen playout states at batch B: each kernel's and its plain
+    version's call, and the bytes each must move (every input read once,
+    every output written once; the rule table is not counted)."""
+    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask, legal_mask_plain
+    from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays, step_plain
+
+    s = playout_states(env, B, 16, gen, checker, f"timing states B={B}")
+    actions = random_actions(env.legal_mask_many(s), gen)
+    mask_in = (s.board, s.side_to_play)
+    step_in = (s.board, s.side_to_play, actions, s.recent_plays, s.rep_first_i,
+               s.reps, s.mid_pair, s.plays_since_capture)
+    kernel = {
+        "legal_mask": lambda: batched_legal_mask(env, *mask_in),
+        "step": lambda: step_arrays(env, *step_in),
+    }
+    plain = {
+        "legal_mask": lambda: legal_mask_plain(env, *mask_in),
+        "step": lambda: step_plain(env, *step_in),
+    }
+    nbytes = {
+        "legal_mask": tensor_bytes(mask_in) + tensor_bytes([kernel["legal_mask"]()]),
+        "step": tensor_bytes(step_in) + tensor_bytes(kernel["step"]()),
+    }
+    return kernel, plain, nbytes
+
+
+def phase_timing(device, checker, card):
     """Kernel and plain times at the self-play shapes (Copenhagen playout
-    states at B=256, the self-play batch, and B=4096)."""
+    states at B=256, the self-play batch, and B=4096), each kernel beside
+    the bound its bytes set; and at B=1, where the card's time is what a
+    launch of the kernel costs with next to no work in it."""
     import torch
 
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
-    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask, legal_mask_plain
-    from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays, step_plain
 
     env = make_env("copenhagen", device)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     times = {}
-    for B in (256, 4096):
-        s = playout_states(env, B, 16, gen, checker, f"timing states B={B}")
-        actions = random_actions(env.legal_mask_many(s), gen)
-        args = (env, s.board, s.side_to_play, actions, s.recent_plays, s.rep_first_i,
-                s.reps, s.mid_pair, s.plays_since_capture)
-        kernel = {
-            "legal_mask": lambda: batched_legal_mask(env, s.board, s.side_to_play),
-            "step": lambda: step_arrays(*args),
-        }
-        plain = {
-            "legal_mask": lambda: legal_mask_plain(env, s.board, s.side_to_play),
-            "step": lambda: step_plain(*args),
-        }
-        times[B] = {k: (time_ms(kernel[k]), time_ms(plain[k])) for k in kernel}
-        for k, (ms, plain_ms) in times[B].items():
+    for B in (1, 256, 4096):
+        kernel, plain, nbytes = timing_case(env, B, gen, checker)
+        times[B] = {}
+        for k in kernel:
+            ms, plain_ms = time_ms(kernel[k]), time_ms(plain[k])
             dev_ms = time_ms(kernel[k], device_only=True)
-            print(f"time copenhagen B={B} {k}: kernel {ms:.4f} ms per call "
-                  f"({dev_ms:.4f} ms of it on the card), plain {plain_ms:.4f} ms", flush=True)
+            bound_ms = nbytes[k] / HBM_BYTES_PER_S * 1e3
+            times[B][k] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bytes=nbytes[k])
+            print(f"time copenhagen B={B} {k} on {card}: kernel {ms:.4f} ms per call "
+                  f"({dev_ms:.4f} ms of it on the card), plain {plain_ms:.4f} ms; "
+                  f"bound {nbytes[k]} bytes / 3.35 TB/s = {bound_ms:.5f} ms, "
+                  f"{100 * bound_ms / dev_ms:.1f}% of it reached", flush=True)
     return times
 
 
@@ -235,7 +330,7 @@ def phase_net_check(device):
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.models.network import init_params, make_network
 
-    env = make_env("copenhagen")
+    env = make_env("copenhagen", "cpu")
     net = make_network(env.n, channels=64, blocks=6, dtype=torch.float32)
     net = init_params(net, torch.Generator().manual_seed(SEED)).eval()
     boards = torch.as_tensor(dense_boards(np.random.RandomState(SEED), env.n, 8))
@@ -348,39 +443,45 @@ def main() -> int:
     # Phase 2: build.
     path, seconds, log = _build.build()
     _build.load_library()
-    ptxas = [line.strip() for line in log.splitlines() if "registers" in line]
-    print(f"build: {path.name} in {seconds:.2f} s; ptxas: {ptxas}", flush=True)
+    print(f"build: {path.name} in {seconds:.2f} s", flush=True)
+    for line in log.splitlines():
+        if "ptxas" in line or "bytes stack frame" in line:
+            print(f"build: {line.strip()}", flush=True)
 
     # Phases 3 and 4: both kernels against their plain versions, then times.
     checker = KernelCheck()
     phase_kernels(device, checker)
-    times = phase_timing(device, checker)
+    times = phase_timing(device, checker, card)
     phase_net_check(device)
 
     # Phase 5: self-play at full width through both kernels.
     launches = phase_selfplay(device, card)
 
+    sources = {
+        "legal_mask": ("csrc/legal_mask.cu", "ops/legal_mask.py:148"),
+        "step": ("csrc/step_kernel.cu", "ops/step_kernel.py:706"),
+    }
+    # Times at B=256, the self-play batch; "ms" is what a call of the wrapper
+    # takes, the host's issue of it included, "device_ms" the kernel on the
+    # card alone. No single PyTorch call computes either function, so there
+    # is no library time.
     kernels = [
         {
-            "name": "legal_mask",
+            "name": name,
             "route": "cuda",
-            "source": "alphazeroforhnefatafl_tpu_torch/csrc/legal_mask.cu",
-            "replaces": "alphazeroforhnefatafl_tpu/ops/legal_mask.py:148",
-            "launches": launches["legal_mask"],
-            "max_abs_err": checker.err["legal_mask"],
-            "ms": times[256]["legal_mask"][0],
-            "plain_ms": times[256]["legal_mask"][1],
-        },
-        {
-            "name": "step",
-            "route": "cuda",
-            "source": "alphazeroforhnefatafl_tpu_torch/csrc/step_kernel.cu",
-            "replaces": "alphazeroforhnefatafl_tpu/ops/step_kernel.py:706",
-            "launches": launches["step"],
-            "max_abs_err": checker.err["step"],
-            "ms": times[256]["step"][0],
-            "plain_ms": times[256]["step"][1],
-        },
+            "source": f"alphazeroforhnefatafl_tpu_torch/{source}",
+            "replaces": f"alphazeroforhnefatafl_tpu/{replaces}",
+            "launches": launches[name],
+            "max_abs_err": checker.err[name],
+            "ms": times[256][name]["ms"],
+            "plain_ms": times[256][name]["plain_ms"],
+            "bound_ms": times[256][name]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "device_ms": times[256][name]["device_ms"],
+            "bytes": times[256][name]["bytes"],
+        }
+        for name, (source, replaces) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

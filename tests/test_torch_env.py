@@ -20,6 +20,7 @@ from alphazeroforhnefatafl_tpu.core import env as jenv
 from alphazeroforhnefatafl_tpu.core import fen
 from alphazeroforhnefatafl_tpu.core.rules import COPENHAGEN, PRESETS, WinReason
 from alphazeroforhnefatafl_tpu_torch.core import env as tenv
+from alphazeroforhnefatafl_tpu_torch.core import rules as trules
 from tests.test_env_golden import random_dense_board
 
 STATE_FIELDS = [
@@ -83,7 +84,7 @@ def step_both(jax_env, torch_env, jstate, actions, ctx):
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_random_playouts_match_jax(preset):
-    jax_env, torch_env = jenv.make_env(preset), tenv.make_env(preset)
+    jax_env, torch_env = jenv.make_env(preset), tenv.make_env(preset, "cpu")
     _, jmask, _ = jax_fns(jax_env)
     B, steps = 4, 24
     rng = np.random.RandomState(sum(map(ord, preset)))
@@ -116,7 +117,7 @@ def _states_from_boards(jax_env, boards: np.ndarray, side: int):
 def test_dense_boards_match_jax(preset):
     """Dense random boards fire captures, shieldwalls and floods far more
     often than playouts from the start."""
-    jax_env, torch_env = jenv.make_env(preset), tenv.make_env(preset)
+    jax_env, torch_env = jenv.make_env(preset), tenv.make_env(preset, "cpu")
     _, jmask, _ = jax_fns(jax_env)
     n = jax_env.n
     rng = np.random.RandomState(11 + n)
@@ -150,7 +151,7 @@ def test_large_boards_match_jax(n):
     boards = np.stack(boards)
     start = fen.board_to_fen(boards[0])
     jax_env = jenv.TaflEnv(COPENHAGEN, start)
-    torch_env = tenv.TaflEnv(COPENHAGEN, start)
+    torch_env = tenv.TaflEnv(trules.COPENHAGEN, start, device="cpu")
     _, jmask, _ = jax_fns(jax_env)
     for side in (0, 1):
         state = _states_from_boards(jax_env, boards, side)
@@ -200,7 +201,7 @@ def _shuttle(torch_env):
 def test_repetition_line_matches_jax(preset, result, reason):
     """Copenhagen's repetition rule is a loss for the repeating side (the
     attacker moved first and repeats first); tablut's is a draw."""
-    jax_env, torch_env = jenv.make_env(preset), tenv.make_env(preset)
+    jax_env, torch_env = jenv.make_env(preset), tenv.make_env(preset, "cpu")
     line = _shuttle(torch_env)
     state = jax_env.reset_batch(4)  # the playout test's batch: no recompile
     for k, a in enumerate(line):
@@ -211,7 +212,7 @@ def test_repetition_line_matches_jax(preset, result, reason):
 
 
 def test_observe_matches_jax():
-    jax_env, torch_env = jenv.make_env("copenhagen"), tenv.make_env("copenhagen")
+    jax_env, torch_env = jenv.make_env("copenhagen"), tenv.make_env("copenhagen", "cpu")
     _, _, jobs = jax_fns(jax_env)
     rng = np.random.RandomState(3)
     boards = np.stack([random_dense_board(rng, jax_env.n) for _ in range(4)])
@@ -234,7 +235,7 @@ def test_matches_pallas_kernels_in_interpret_mode():
     from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
     from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import SCALAR_INDEX, step_arrays
 
-    jax_env, torch_env = jenv.make_env("brandubh"), tenv.make_env("brandubh")
+    jax_env, torch_env = jenv.make_env("brandubh"), tenv.make_env("brandubh", "cpu")
     rng = np.random.RandomState(5)
     B = 8
     boards = np.stack([random_dense_board(rng, jax_env.n) for _ in range(B)])
@@ -284,7 +285,7 @@ def test_matches_pallas_kernels_in_interpret_mode():
 def test_cuda_request_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        tenv.TaflEnv(*PRESETS["brandubh"], device="cuda")
+        tenv.TaflEnv(*trules.PRESETS["brandubh"], device="cuda")
 
 
 def test_port_imports_no_jax():

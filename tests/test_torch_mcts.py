@@ -61,7 +61,7 @@ CFG = dict(num_simulations=32, max_children=32, cpuct=1.5, dirichlet_eps=0.0, ma
 
 @pytest.mark.parametrize("preset", ["brandubh", "tablut", "copenhagen"])
 def test_search_matches_jax_exactly(preset):
-    torch_env, jax_env = tenv.make_env(preset), jenv.make_env(preset)
+    torch_env, jax_env = tenv.make_env(preset, "cpu"), jenv.make_env(preset)
     states = playout_positions(torch_env)
     legal = torch_env.legal_mask_many(states)
 
@@ -104,7 +104,7 @@ def test_dirichlet_sampler_mean():
 
 
 def test_noise_changes_only_the_priors_and_stays_legal():
-    env = tenv.make_env("brandubh")
+    env = tenv.make_env("brandubh", "cpu")
     states = playout_positions(env, plies=(0, 3))
     legal = env.legal_mask_many(states)
     tm = tmcts.MCTS(env, torch_fake_evaluate(env), tmcts.MCTSConfig(num_simulations=8, max_children=16))

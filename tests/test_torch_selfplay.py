@@ -34,7 +34,7 @@ MCTS_CFG = dict(num_simulations=32, max_children=32, dirichlet_eps=0.0)
 
 @pytest.mark.parametrize("preset", ["brandubh"])
 def test_one_move_matches_jax(preset):
-    torch_env, jax_env = tenv.make_env(preset), jenv.make_env(preset)
+    torch_env, jax_env = tenv.make_env(preset, "cpu"), jenv.make_env(preset)
     states = playout_positions(torch_env, plies=(0, 4, 9, 16))
     B = states.batch_size
     jstates = to_jax(states)
@@ -77,7 +77,7 @@ def test_one_move_matches_jax(preset):
 
 
 def test_play_fills_replay_with_converted_net():
-    env = tenv.make_env("copenhagen")
+    env = tenv.make_env("copenhagen", "cpu")
     n = env.n
     fnet = FlaxNet(board_size=n, channels=8, blocks=1, dtype=jnp.float32)
     params = fnet.init(jax.random.PRNGKey(0), jnp.zeros((1, n, n, 6), jnp.float32))
@@ -117,7 +117,7 @@ def test_play_fills_replay_with_converted_net():
     ],
 )
 def test_resignation(disable_frac, min_moves, want):
-    env = tenv.make_env("brandubh")
+    env = tenv.make_env("brandubh", "cpu")
     cfg = SelfPlayConfig(batch_size=4, max_game_len=6, resign_threshold=-2.0, resign_consecutive=2,
                          resign_disable_frac=disable_frac, resign_min_moves=min_moves)
     actor = SelfPlayActor(env, torch_fake_evaluate(env), MCTSConfig(num_simulations=4, max_children=8), cfg)
@@ -140,7 +140,7 @@ def test_replay_ring_and_sample_match_jax():
     from alphazeroforhnefatafl_tpu.train.replay import ReplayBuffer as JaxReplay
 
     n, cap, k = 7, 10, 4
-    bufs = [ReplayBuffer(tenv.make_env("brandubh"), cap, k), JaxReplay(jenv.make_env("brandubh"), cap, k)]
+    bufs = [ReplayBuffer(tenv.make_env("brandubh", "cpu"), cap, k), JaxReplay(jenv.make_env("brandubh"), cap, k)]
     rng = np.random.RandomState(0)
     for m, width in [(4, 3), (5, 6), (3, 4)]:
         batch = (
