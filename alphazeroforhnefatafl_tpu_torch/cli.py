@@ -1,11 +1,17 @@
 """Command-line interface of the PyTorch port.
 
 ``selfplay`` runs self-play games with a randomly initialized net and prints
-the statistics as JSON; its flags are those of the JAX CLI's ``selfplay``
-plus ``--device``::
+the statistics as JSON; ``train`` runs the AlphaZero loop and prints one JSON
+line of metrics per iteration. Their flags are those of the JAX CLI's
+``selfplay`` and ``train`` plus ``--device``::
 
     python -m alphazeroforhnefatafl_tpu_torch.cli selfplay --preset copenhagen \\
         --channels 64 --blocks 6 --sims 128
+    python -m alphazeroforhnefatafl_tpu_torch.cli train --preset copenhagen \\
+        --channels 64 --blocks 6 --sims 64 --checkpoint-dir runs/cph/ckpt
+
+Both run on the CUDA card unless ``--cpu`` (or ``--device cpu``) is given,
+and exit with an error when there is no card.
 """
 
 from __future__ import annotations
@@ -14,6 +20,25 @@ import argparse
 import json
 import sys
 import time
+
+
+def _device(args):
+    """The device the flags ask for; exits when it is a card and there is none."""
+    import torch
+
+    device = torch.device("cpu" if args.cpu else args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: CUDA is not available (use --device cpu)")
+    return device
+
+
+def _add_common(p):
+    from .core.rules import PRESETS
+
+    p.add_argument("--preset", default="brandubh", choices=sorted(PRESETS.keys()))
+    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--cpu", action="store_true", help="same as --device cpu")
+    p.add_argument("--seed", type=int, default=0)
 
 
 def cmd_selfplay(args):
@@ -25,9 +50,7 @@ def cmd_selfplay(args):
     from .train.replay import ReplayBuffer
     from .train.selfplay import SelfPlayActor, SelfPlayConfig
 
-    device = torch.device("cpu" if args.cpu else args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: CUDA is not available (use --device cpu)")
+    device = _device(args)
     env = make_env(args.preset, device)
     net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm)
     init_params(net, torch.Generator().manual_seed(args.seed))
@@ -51,17 +74,44 @@ def cmd_selfplay(args):
     print(json.dumps(d, indent=2))
 
 
-def main(argv=None):
-    from .core.rules import PRESETS
+def cmd_train(args):
+    from .core.env import make_env
+    from .search.mcts import MCTSConfig
+    from .train.loop import LoopConfig, run_loop
+    from .train.selfplay import SelfPlayConfig
 
+    env = make_env(args.preset, _device(args))
+    cfg = LoopConfig(
+        preset=args.preset,
+        iterations=args.iterations,
+        games_per_iteration=args.games,
+        train_steps_per_iteration=args.train_steps,
+        train_batch_size=args.batch,
+        min_replay_size=args.min_replay,
+        channels=args.channels,
+        blocks=args.blocks,
+        norm=args.norm,
+        arena_games=args.arena_games,
+        checkpoint_dir=args.checkpoint_dir,
+        seed=args.seed,
+        mcts=MCTSConfig(
+            num_simulations=args.sims,
+            # The search raises NotImplementedError on "gumbel" until that
+            # root selection is ported.
+            root_selection="gumbel" if args.gumbel else "puct",
+            dirichlet_alpha_scale=args.alpha_scale,
+        ),
+        selfplay=SelfPlayConfig(batch_size=args.selfplay_batch),
+    )
+    run_loop(env, cfg)
+
+
+def main(argv=None):
     parser = argparse.ArgumentParser(prog="alphazeroforhnefatafl_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("selfplay", help="run self-play games")
-    p.add_argument("--preset", default="brandubh", choices=sorted(PRESETS.keys()))
-    p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    p.add_argument("--cpu", action="store_true", help="same as --device cpu")
-    p.add_argument("--seed", type=int, default=0)
+    _add_common(p)
     p.add_argument("--games", type=int, default=8)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--sims", type=int, default=32)
@@ -69,6 +119,26 @@ def main(argv=None):
     p.add_argument("--blocks", type=int, default=3)
     p.add_argument("--norm", default="group", choices=["group", "none"])
     p.set_defaults(fn=cmd_selfplay)
+
+    p = sub.add_parser("train", help="run the AlphaZero loop")
+    _add_common(p)
+    p.add_argument("--iterations", type=int, default=3)
+    p.add_argument("--games", type=int, default=16)
+    p.add_argument("--train-steps", type=int, default=50)
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--min-replay", type=int, default=256)
+    p.add_argument("--sims", type=int, default=32)
+    p.add_argument("--selfplay-batch", type=int, default=8)
+    p.add_argument("--channels", type=int, default=32)
+    p.add_argument("--blocks", type=int, default=3)
+    p.add_argument("--norm", default="group", choices=["group", "none"])
+    p.add_argument("--arena-games", type=int, default=0)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--gumbel", action="store_true",
+                   help="gumbel sequential-halving root selection (not ported yet: raises)")
+    p.add_argument("--alpha-scale", type=float, default=None,
+                   help="dirichlet alpha = scale / num_legal_moves")
+    p.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)
     return args.fn(args)

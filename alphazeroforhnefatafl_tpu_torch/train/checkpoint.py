@@ -1,0 +1,156 @@
+"""Checkpoint / resume for the AlphaZero loop.
+
+The counterpart of ``alphazeroforhnefatafl_tpu/train/checkpoint.py``, with
+``torch.save`` in place of Orbax. A checkpoint is one file per iteration,
+written under a temporary name and renamed, that captures the full loop
+state — the net's, optimizer's and schedule's ``state_dict``, the replay
+buffer, the loop generator's state, the iteration and an ``extra`` dict (the
+gating incumbent) — so a restart resumes at the last iteration boundary.
+Every leaf is a tensor or a plain Python value, so the file loads with
+``torch.load(weights_only=True)``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from .learner import TrainState
+from .replay import ReplayBuffer
+
+_REPLAY_ARRAYS = ("board", "side", "reps", "policy_idx", "policy_p", "value")
+_REPLAY_COUNTERS = ("write", "size", "total_added")
+_FILE = re.compile(r"^ckpt_(\d+)\.pt$")
+
+
+def _replay_state(replay: ReplayBuffer) -> Dict[str, Any]:
+    state = {k: torch.from_numpy(getattr(replay, k)) for k in _REPLAY_ARRAYS}
+    state.update({k: int(getattr(replay, k)) for k in _REPLAY_COUNTERS})
+    return state
+
+
+def _restore_replay(replay: ReplayBuffer, st: Dict[str, Any]) -> None:
+    for k in _REPLAY_ARRAYS:
+        getattr(replay, k)[...] = st[k].numpy()
+    for k in _REPLAY_COUNTERS:
+        setattr(replay, k, int(st[k]))
+
+
+def _clone(obj):
+    """A copy of a tree of dicts, lists, tuples and tensors that shares no
+    memory with the (memory-mapped) file it was loaded from."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(v) for v in obj)
+    return obj
+
+
+def _check_architecture(where: str, net: torch.nn.Module, saved: Dict[str, torch.Tensor]) -> None:
+    """Raise unless ``saved`` has exactly the net's tensors, by name and shape."""
+    want = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in saved.items()}
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    shape_diff = sorted(k for k in set(want) & set(got) if want[k] != got[k])
+    if missing or extra or shape_diff:
+        detail = "; ".join(
+            filter(
+                None,
+                [
+                    missing and f"tensors only in the net {missing[:4]}",
+                    extra and f"tensors only on disk {extra[:4]}",
+                    shape_diff
+                    and f"shape mismatches {[(k, want[k], got[k]) for k in shape_diff[:4]]}",
+                ],
+            )
+        )
+        raise ValueError(
+            f"checkpoint {where} was saved with a different architecture than "
+            f"the net to restore into (check --channels/--blocks/--norm): {detail}"
+        )
+
+
+class CheckpointManager:
+    """Iteration-boundary checkpointing with retention."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, iteration: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{iteration:08d}.pt")
+
+    def all_iterations(self) -> List[int]:
+        found = (_FILE.match(f) for f in os.listdir(self.directory))
+        return sorted(int(m.group(1)) for m in found if m)
+
+    def latest_iteration(self) -> Optional[int]:
+        its = self.all_iterations()
+        return its[-1] if its else None
+
+    def save(
+        self,
+        iteration: int,
+        train_state: TrainState,
+        replay: Optional[ReplayBuffer],
+        generator: torch.Generator,
+        extra: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        payload = {
+            "iteration": int(iteration),
+            "train_state": train_state.state_dict(),
+            "rng": generator.get_state(),
+            "extra": extra or {},
+        }
+        if replay is not None:
+            payload["replay"] = _replay_state(replay)
+        path = self._path(iteration)
+        tmp = path + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        for old in self.all_iterations()[: -self.max_to_keep]:
+            os.remove(self._path(old))
+
+    def _load(self, iteration: Optional[int]) -> Tuple[int, Dict[str, Any]]:
+        step = iteration if iteration is not None else self.latest_iteration()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        # Memory-mapped: a caller that wants the parameters only, or the
+        # keys of ``extra``, does not read the replay buffer.
+        return step, torch.load(self._path(step), map_location="cpu", mmap=True, weights_only=True)
+
+    def saved_extra_keys(self, iteration: Optional[int] = None) -> Tuple[str, ...]:
+        """Keys of the ``extra`` payload the on-disk checkpoint was saved
+        with (empty for ungated runs, and when there is no checkpoint)."""
+        if iteration is None and self.latest_iteration() is None:
+            return ()
+        return tuple(self._load(iteration)[1]["extra"].keys())
+
+    def restore(
+        self,
+        train_state: TrainState,
+        replay: Optional[ReplayBuffer],
+        iteration: Optional[int] = None,
+    ) -> Tuple[int, TrainState, torch.Tensor, Dict[str, Any]]:
+        """Load a checkpoint into ``train_state`` (in place) and ``replay``.
+
+        ``replay=None`` restores the parameters and optimizer only (an Elo
+        ladder over a run's checkpoints). Returns ``(iteration, train_state,
+        generator state, extra)``. Raises ``ValueError`` when the checkpoint
+        holds another architecture than ``train_state.net``, instead of
+        loading a partly fresh net.
+        """
+        step, payload = self._load(iteration)
+        saved = payload["train_state"]
+        _check_architecture(f"{self.directory}:{step}", train_state.net, saved["net"])
+        train_state.load_state_dict(_clone(saved))
+        if replay is not None:
+            _restore_replay(replay, payload["replay"])
+        return step, train_state, payload["rng"].clone(), _clone(payload["extra"])

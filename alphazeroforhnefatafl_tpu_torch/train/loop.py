@@ -1,0 +1,229 @@
+"""The AlphaZero training loop.
+
+The counterpart of ``alphazeroforhnefatafl_tpu/train/loop.py`` for one
+process and one device: self-play actors, a replay buffer, the learner,
+arena gating, checkpointing and metrics. Everything runs on the env's
+device (``env.device``: the CUDA card unless the caller built the env for
+the CPU).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.env import TaflEnv
+from ..core.symmetry import random_symmetry_batch
+from ..models.network import make_network
+from ..search.mcts import MCTSConfig
+from ..utils.metrics import MetricsLogger
+from .arena import play_match
+from .checkpoint import CheckpointManager
+from .learner import TrainState, init_train_state, make_train_step
+from .replay import ReplayBuffer, make_batch_builder
+from .selfplay import SelfPlayActor, SelfPlayConfig
+
+
+@dataclass(frozen=True)
+class LoopConfig:
+    preset: str = "brandubh"
+    iterations: int = 10
+    games_per_iteration: int = 64
+    train_steps_per_iteration: int = 100
+    train_batch_size: int = 256
+    min_replay_size: int = 512
+    replay_capacity: int = 200_000
+    learning_rate: float = 2e-3
+    channels: int = 64
+    blocks: int = 6
+    #: Trunk normalization: "group" or "none" (norm-free NFResBlock — see
+    #: models/network.py).
+    norm: str = "group"
+    #: >0 enables arena gating: each iteration pits the freshly trained net
+    #: against the incumbent best net over this many games, and self-play is
+    #: generated by the INCUMBENT (AlphaGo-Zero-style best-net self-play) —
+    #: the trained net only takes over data generation once it passes
+    #: ``gate_threshold``. 0 disables gating; self-play then always uses the
+    #: latest params (AlphaZero-style).
+    arena_games: int = 0
+    arena_sims: int = 64
+    arena_max_game_len: int = 256
+    #: Run the gating arena every N iterations (the incumbent generates
+    #: self-play either way; a sparser cadence trades promotion latency for
+    #: wall-clock). <= 0 disables the arena entirely, like ``arena_games=0``.
+    arena_every: int = 4
+    gate_threshold: float = 0.55
+    #: What ``gate_threshold`` applies to: ``"score"`` (wins + half draws over
+    #: all games), ``"decisive"`` (win rate over decisive games only — the
+    #: draw-robust choice when most arena games are drawn), or ``"wilson"``
+    #: (promote when the Wilson lower bound of the decisive win rate at
+    #: ``gate_z`` clears ``gate_threshold`` — set the threshold to ~0.5 then;
+    #: the statistically honest gate when decisive games are few).
+    gate_on: str = "score"
+    #: With ``gate_on="decisive"``: minimum decisive games required to
+    #: promote (guards against promoting on one lucky decisive game).
+    gate_min_decisive: int = 4
+    #: One-sided normal quantile for ``gate_on="wilson"`` (1.0 ~ 84%
+    #: confidence, 1.64 ~ 95%). The bound already shrinks with small decisive
+    #: samples, so no separate min-decisive floor is needed.
+    gate_z: float = 1.0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 1
+    #: Checkpoints retained on disk; raise it for learning-curve ladders
+    #: over a long run's history.
+    checkpoint_keep: int = 3
+    seed: int = 0
+    #: Apply a random D4 board/action symmetry to every training sample
+    #: (core/symmetry.py) — 8x effective data from symmetric rulesets.
+    augment_symmetry: bool = True
+    mcts: MCTSConfig = field(default_factory=lambda: MCTSConfig(num_simulations=64))
+    selfplay: SelfPlayConfig = field(default_factory=SelfPlayConfig)
+
+
+def gate_passes(config: LoopConfig, result) -> bool:
+    """Whether the arena ``result`` promotes the candidate under
+    ``config.gate_on``."""
+    if config.gate_on == "decisive":
+        return (
+            result.decisive_score >= config.gate_threshold
+            and result.decisive_games >= config.gate_min_decisive
+        )
+    if config.gate_on == "wilson":
+        return result.decisive_wilson_lb(config.gate_z) > config.gate_threshold
+    if config.gate_on == "score":
+        return result.score >= config.gate_threshold
+    raise ValueError(f"unknown gate_on={config.gate_on!r}")
+
+
+def run_loop(
+    env: TaflEnv,
+    config: LoopConfig,
+    log: Optional[MetricsLogger] = None,
+    deadline: Optional[float] = None,
+    replay: Optional[ReplayBuffer] = None,
+) -> TrainState:
+    """Run the full AlphaZero iteration cycle; returns the final TrainState."""
+    log = log or MetricsLogger()
+    device = env.device
+
+    net = make_network(env.n, channels=config.channels, blocks=config.blocks, norm=config.norm)
+    train_state = init_train_state(
+        net, torch.Generator().manual_seed(config.seed), device,
+        learning_rate=config.learning_rate,
+    )
+    # One generator on the device draws self-play, augmentation and arena
+    # randomness; its state is part of a checkpoint.
+    generator = torch.Generator(device=device).manual_seed(config.seed)
+
+    if replay is None:
+        replay = ReplayBuffer(env, config.replay_capacity, config.selfplay.policy_k)
+    build_batch = make_batch_builder(env)
+    train_step = make_train_step(train_state)
+    actor = SelfPlayActor(env, net, config.mcts, config.selfplay, device=device)
+    np_rng = np.random.RandomState(config.seed)
+
+    ckpt = (
+        CheckpointManager(config.checkpoint_dir, max_to_keep=config.checkpoint_keep)
+        if config.checkpoint_dir
+        else None
+    )
+    # arena_every <= 0 disables the arena, and with it gating: without an
+    # arena there is no promotion path, so holding self-play on the frozen
+    # incumbent would pin data generation to the init forever.
+    gated = config.arena_games > 0 and config.arena_every > 0
+    # A frozen copy, never an alias: the optimizer updates the net in place.
+    incumbent = copy.deepcopy(net).requires_grad_(False)
+    start_iter = 0
+    if ckpt is not None and ckpt.latest_iteration() is not None:
+        start_iter, train_state, rng_state, extra = ckpt.restore(train_state, replay)
+        generator.set_state(rng_state)
+        has_incumbent = "incumbent_params" in extra
+        incumbent.load_state_dict(extra["incumbent_params"] if has_incumbent else net.state_dict())
+        if gated and not has_incumbent:
+            # Resuming a gated run from an ungated checkpoint: gating restarts
+            # with the candidate as its own incumbent. Make that visible.
+            log.scalar("resume/incumbent_missing", 1.0)
+        start_iter += 1
+        log.scalar("resume/iteration", start_iter)
+
+    def checkpoint_extra():
+        return {"incumbent_params": incumbent.state_dict()} if gated else None
+
+    for it in range(start_iter, config.iterations):
+        t0 = time.perf_counter()
+        # With gating on, the incumbent best net generates the data; the
+        # trained candidate must beat it in the arena to take over.
+        actor.evaluate = incumbent if gated else net
+        stats = actor.play(replay, generator, max(1, config.games_per_iteration))
+        sp_time = time.perf_counter() - t0
+        for k, v in stats.as_dict().items():
+            log.scalar(f"selfplay/{k}", v, step=it)
+        log.scalar("selfplay/games_per_hour", stats.games / max(sp_time, 1e-9) * 3600, step=it)
+
+        ready = replay.size >= config.min_replay_size
+        metrics = {}
+        t1 = time.perf_counter()
+        if ready:
+            for _ in range(config.train_steps_per_iteration):
+                s = replay.sample(np_rng, config.train_batch_size)
+                board = torch.as_tensor(s.board, device=device)
+                policy_idx = torch.as_tensor(s.policy_idx, device=device)
+                if config.augment_symmetry:
+                    board, policy_idx = random_symmetry_batch(generator, board, policy_idx)
+                batch = build_batch(board, s.side, s.reps, policy_idx, s.policy_p, s.value)
+                metrics = train_step(batch)
+            for k, v in metrics.items():
+                log.scalar(f"train/{k}", float(v), step=it)
+        train_time = time.perf_counter() - t1
+
+        if gated and ready and (it + 1) % config.arena_every == 0:
+            # Same search regime as training (max_depth, cpuct, ...), only
+            # noise-free and at the arena budget.
+            arena_cfg = dataclasses.replace(
+                config.mcts, num_simulations=config.arena_sims, dirichlet_eps=0.0
+            )
+            result = play_match(
+                env, net, incumbent, arena_cfg,
+                num_games=config.arena_games,
+                max_game_len=config.arena_max_game_len,
+                generator=generator,
+            )
+            for k, v in result.as_dict().items():
+                log.scalar(f"arena/{k}", float(v), step=it)
+            passed = gate_passes(config, result)
+            if config.gate_on == "wilson":
+                log.scalar(
+                    "arena/gate_wilson_lb", result.decisive_wilson_lb(config.gate_z), step=it
+                )
+            if passed:
+                incumbent.load_state_dict(net.state_dict())
+            log.scalar("arena/promoted", 1.0 if passed else 0.0, step=it)
+
+        log.scalar("time/selfplay_s", sp_time, step=it)
+        log.scalar("time/train_s", train_time, step=it)
+        log.scalar("replay/size", replay.size, step=it)
+        log.flush(step=it)
+
+        saved = False
+        if ckpt is not None and (it + 1) % config.checkpoint_every == 0:
+            ckpt.save(it, train_state, replay, generator, extra=checkpoint_extra())
+            saved = True
+
+        # Wall-clock budget: stop cleanly at an iteration boundary. Force a
+        # checkpoint if the cadence didn't just write one — otherwise a
+        # checkpoint_every > 1 run discards up to checkpoint_every - 1
+        # iterations of work at every deadline stop.
+        if deadline is not None and time.time() >= deadline:
+            if ckpt is not None and not saved:
+                ckpt.save(it, train_state, replay, generator, extra=checkpoint_extra())
+            log.scalar("stop/deadline_reached", 1.0, step=it)
+            log.flush(step=it)
+            break
+
+    return train_state

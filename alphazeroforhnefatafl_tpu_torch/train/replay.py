@@ -2,8 +2,9 @@
 
 The counterpart of ``ReplayBuffer``/``ReplaySample`` in
 ``alphazeroforhnefatafl_tpu/train/replay.py``: a ring of compact positions
-(int8 boards, sparse top-K policy targets) with uniform sampling. The
-device-side batch builder belongs to the learner and is not here yet.
+(int8 boards, sparse top-K policy targets) with uniform sampling;
+observation planes, dense policy targets and legal masks are rebuilt on the
+device at sample time by :func:`make_batch_builder`.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from .learner import Batch
 
 
 @dataclass
@@ -68,3 +72,40 @@ class ReplayBuffer:
             policy_p=self.policy_p[idx],
             value=self.value[idx],
         )
+
+
+def make_batch_builder(env):
+    """Device-side reconstruction: compact sample -> training :class:`Batch`.
+
+    ``build(board, side, reps, policy_idx, policy_p, value)`` takes the six
+    arrays of a :class:`ReplaySample` (numpy arrays, or tensors already
+    moved and augmented) and rebuilds, on ``env.device``, the observation
+    planes, the legal-action mask (kernel 1 on a CUDA card) and the dense
+    policy target from the sparse top-K form.
+    """
+    from ..ops.legal_mask import batched_legal_mask
+
+    def build(board, side, reps, policy_idx, policy_p, value) -> Batch:
+        dev = env.device
+        board = torch.as_tensor(board, device=dev).to(torch.int8)
+        side = torch.as_tensor(side, device=dev).to(torch.int32)
+        reps = torch.as_tensor(reps, device=dev).to(torch.int32)
+        policy_idx = torch.as_tensor(policy_idx, device=dev).long()
+        policy_p = torch.as_tensor(policy_p, device=dev).to(torch.float32)
+        B = board.shape[0]
+        # The stored count is the mover's; the other side's plane is unread.
+        reps2 = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        reps2.scatter_(1, side.long()[:, None], reps[:, None])
+        state = env.reset_batch(B).replace(board=board, side_to_play=side, reps=reps2)
+        valid = policy_idx >= 0
+        target = torch.zeros((B, env.num_actions), dtype=torch.float32, device=dev)
+        # scatter_add_: an action listed twice gets both weights.
+        target.scatter_add_(1, policy_idx.clamp(min=0), torch.where(valid, policy_p, 0.0))
+        return Batch(
+            obs=env.observe(state),
+            policy_target=target,
+            value_target=torch.as_tensor(value, device=dev).to(torch.float32),
+            legal_mask=batched_legal_mask(env, board, side),
+        )
+
+    return build

@@ -83,6 +83,8 @@ class SelfPlayActor:
     """Plays lockstep self-play games on ``device`` and feeds a replay buffer.
 
     ``evaluate(obs) -> (logits, value)``, typically the policy/value net.
+    Assign :attr:`evaluate` to play the next games with another net (the
+    training loop switches between the incumbent and the net in training).
     """
 
     def __init__(
@@ -100,6 +102,14 @@ class SelfPlayActor:
         self.cfg = config
         self.mcts = MCTS(env, evaluate, mcts_config, self.device)
         self.moves_played = 0  # batched moves, for rates
+
+    @property
+    def evaluate(self) -> Callable:
+        return self.mcts.evaluate
+
+    @evaluate.setter
+    def evaluate(self, evaluate: Callable) -> None:
+        self.mcts.evaluate = evaluate
 
     def policy_target(self, action_probs: torch.Tensor):
         """Sparse top-``policy_k`` policy target: (actions, probs), -1 pad."""

@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 2. build both CUDA kernels from ``alphazeroforhnefatafl_tpu_torch/csrc``;
 3. kernel 1 (legal mask) against its plain PyTorch version on the card,
    bit for bit: Copenhagen playout states and dense random boards at
-   B=4096, every preset at B=256, and 15x15 and 21x21 board batches; then
+   B=4096 and at B=64 (the arena's batch), every preset at B=256 (the
+   self-play and learner batch), and 15x15 and 21x21 board batches; then
    the cases that a kernel serving a group of games per CTA makes risky:
    batches that the group does not divide (B = 1, 3, 257, odd batches of
    the 7x7 and 9x9 presets), 19x19 boards (whose groups of three start off
@@ -27,9 +28,32 @@ Phases, in order; any failure exits non-zero:
    GroupNorm net with a bf16 trunk and random weights from a seed,
    ``MCTSConfig()`` (128 simulations, 128 children), 256 games of at most 8
    moves in a batch of 256. Both kernels' launch counters must grow during
-   this phase.
+   this phase;
+6. the learner check: the same 64x6 float32 net and the same batch (built
+   from phase 5's replay) take one train step on the card and on the CPU
+   with TF32 off; loss and ``grad_norm`` agree within 1e-4. The batch
+   builder's legal mask on the card (kernel 1) equals the plain version's
+   bit for bit, and every policy-target row sums to 1;
+7. training at full width: 30 learner steps of the 64x6 bf16 net at batch
+   256 with D4 augmentation from phase 5's replay, through
+   ``make_batch_builder`` and ``make_train_step``. Every loss is finite,
+   the parameters move, the loss on a held batch falls, and kernel 1 is
+   launched exactly once per step. Prints the milliseconds of a step, split
+   into sample + copy, augment + build and forward + backward + optimizer,
+   and from a ``torch.profiler`` window over five more steps the card's
+   busy time, the window's wall time and the launches per step;
+8. the loop through its entry point: ``run_loop`` for two gated iterations
+   (256 self-play games, 20 learner steps, a 64-game arena of 64
+   simulations a move, a checkpoint each), then a second call that must
+   resume at iteration 2 from the checkpoint. The launches are counted
+   where they are made: around every arena match (kernel 1 once and kernel
+   2 65 times a ply) and around every batch the learner builds (kernel 1
+   once); the rest is self-play's.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
+The launch counters are set to 0 before each of the phases 5, 7 and 8 and
+read after it. The second-to-last line is ``{"kernels": [...]}``, whose
+``launches`` sum those phases and whose ``launches_by_path`` split them
+into self-play, learner and arena; the last line is
 ``{"ok": true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
@@ -40,6 +64,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -168,6 +193,9 @@ def phase_kernels(device, checker):
     playout_states(cph, 4096, 24, gen, checker, "copenhagen B=4096 playout")
     for k in range(4):
         dense_case(cph, 4096, f"copenhagen B=4096 dense #{k}")
+    # The arena's shape: 64 games of at most 16 plies.
+    playout_states(cph, 64, 16, gen, checker, "copenhagen B=64 playout")
+    dense_case(cph, 64, "copenhagen B=64 dense")
     for preset in PRESETS:
         env = make_env(preset, device)
         playout_states(env, 256, 24, gen, checker, f"{preset} B=256 playout")
@@ -416,7 +444,351 @@ def phase_selfplay(device, card):
     q = np.percentile(move_s[1:], [25, 50, 75])
     print(f"selfplay move seconds: first {move_s[0]:.4f}; moves 2-{len(move_s)} quartiles "
           f"{q[0]:.4f} / {q[1]:.4f} / {q[2]:.4f}", flush=True)
+    return launches, replay
+
+
+def read_launches():
+    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
+    from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays
+
+    return {"legal_mask": batched_legal_mask.launches, "step": step_arrays.launches}
+
+
+def zero_launches():
+    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
+    from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays
+
+    batched_legal_mask.launches = 0
+    step_arrays.launches = 0
+
+
+def sample_arrays(s):
+    return s.board, s.side, s.reps, s.policy_idx, s.policy_p, s.value
+
+
+def phase_learner_check(device, replay):
+    """One train step of the same float32 64x6 net on the same batch, on
+    the card and on the CPU (TF32 off; tolerance 1e-4, as for the forward:
+    the two devices sum in different orders). The batch is built on each
+    device from the same replay sample: on the card the legal mask comes
+    from kernel 1, on the CPU from its plain version."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import legal_mask_plain
+    from alphazeroforhnefatafl_tpu_torch.train.learner import init_train_state, make_train_step
+    from alphazeroforhnefatafl_tpu_torch.train.replay import make_batch_builder
+
+    sample = replay.sample(np.random.RandomState(SEED), 256)
+    got = {}
+    for dev in ("cpu", device):
+        env = make_env("copenhagen", dev)
+        before = read_launches()["legal_mask"]
+        batch = make_batch_builder(env)(*sample_arrays(sample))
+        if (read_launches()["legal_mask"] - before) != (0 if dev == "cpu" else 1):
+            fail(f"the batch builder on {dev} launched kernel 1 an unexpected number of times")
+        net = make_network(env.n, channels=64, blocks=6, dtype=torch.float32)
+        state = init_train_state(net, torch.Generator().manual_seed(SEED), dev)
+        metrics = make_train_step(state)(batch)
+        got[str(dev)] = (batch, {k: float(v) for k, v in metrics.items()})
+    (cpu_batch, cpu_m), (card_batch, card_m) = got["cpu"], got[str(device)]
+    if not torch.equal(card_batch.legal_mask.cpu(), cpu_batch.legal_mask):
+        fail("the batch builder's legal mask on the card differs from the plain version's")
+    plain = legal_mask_plain(make_env("copenhagen", device),
+                             torch.as_tensor(sample.board, device=device),
+                             torch.as_tensor(sample.side, device=device).int())
+    if not torch.equal(card_batch.legal_mask, plain):
+        fail("the batch builder's legal mask differs from the plain version on the card")
+    if not torch.equal(card_batch.obs.cpu(), cpu_batch.obs):
+        fail("the batch builder's planes on the card differ from the CPU's")
+    sums = card_batch.policy_target.sum(1)
+    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
+        fail(f"policy targets do not sum to 1 (worst {float((sums - 1).abs().max())})")
+    if not bool((card_batch.policy_target[~card_batch.legal_mask] == 0).all()):
+        fail("a policy target puts weight on an illegal action")
+    for k in ("loss", "grad_norm", "policy_loss", "value_loss"):
+        a, b = card_m[k], cpu_m[k]
+        if not (np.isfinite(a) and abs(a - b) <= 1e-4 + 1e-4 * abs(b)):
+            fail(f"learner {k} on the card is {a}, on the CPU {b}")
+    print(f"learner: float32 train step on the card matches the CPU within 1e-4 "
+          f"(loss {card_m['loss']:.6f} vs {cpu_m['loss']:.6f}, grad_norm "
+          f"{card_m['grad_norm']:.6f} vs {cpu_m['grad_norm']:.6f}); the batch builder's mask "
+          f"from kernel 1 equals the plain version's on 256 positions", flush=True)
+
+
+def profile_steps(one_step, steps=5):
+    """``torch.profiler`` over ``steps`` calls of ``one_step``: a line with the
+    card's busy milliseconds and kernel launches per step, the window's own
+    wall time per step (the profiler slows the host, so this is not the time
+    of a step without it) and the kernels that hold most of the busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    # Kernels and copies only: the device track also carries the ranges of
+    # user annotations (the optimizer's step), which hold kernels counted here.
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not on_card:
+        return "profile: the profiler recorded no event on the card (not measured)"
+    by_name = {}
+    for e in on_card:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"profile of {steps} learner steps: the card is busy {busy_ms:.3f} ms of the "
+            f"{wall_ms:.3f} ms a step takes under the profiler "
+            f"({100 * (1 - busy_ms / wall_ms):.1f}% idle in that window); "
+            f"{len(on_card) / steps:.0f} kernels and copies a step; most time in "
+            + "; ".join(f"{name[:60]} {ms / steps:.3f} ms" for name, ms in top))
+
+
+def phase_training(device, card, replay, steps=30, batch_size=256):
+    """Full-width learner steps from phase 5's replay, as ``run_loop`` makes
+    them: sample, copy, D4 augmentation, device-side batch, train step."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.core.symmetry import random_symmetry_batch
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.train.learner import (
+        init_train_state, loss_fn, make_train_step,
+    )
+    from alphazeroforhnefatafl_tpu_torch.train.replay import make_batch_builder
+
+    env = make_env("copenhagen", device)
+    net = make_network(env.n, channels=64, blocks=6, norm="group", dtype=torch.bfloat16)
+    # Another seed than the net that played phase 5's games: that net's own
+    # priors shaped the visit counts it is now to learn, so its loss on them
+    # starts low and D4-augmented training first raises it.
+    state = init_train_state(net, torch.Generator().manual_seed(SEED + 1), device)
+    build = make_batch_builder(env)
+    train_step = make_train_step(state)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    np_rng = np.random.RandomState(SEED)
+
+    held = build(*sample_arrays(replay.sample(np.random.RandomState(SEED + 7), batch_size)))
+
+    def held_loss():
+        with torch.no_grad():
+            return float(loss_fn(net, held)[0])
+
+    loss_before = held_loss()
+    params_before = [p.detach().clone() for p in net.parameters()]
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def one_step(times=None):
+        t0 = clock() if times is not None else 0.0
+        s = replay.sample(np_rng, batch_size)
+        board = torch.as_tensor(s.board, device=device)
+        policy_idx = torch.as_tensor(s.policy_idx, device=device)
+        t1 = clock() if times is not None else 0.0
+        board, policy_idx = random_symmetry_batch(gen, board, policy_idx)
+        batch = build(board, s.side, s.reps, policy_idx, s.policy_p, s.value)
+        t2 = clock() if times is not None else 0.0
+        metrics = train_step(batch)
+        if times is not None:
+            times[:] = (t1 - t0, t2 - t1, clock() - t2)
+        return metrics
+
+    zero_launches()
+    split = np.zeros((steps, 3))
+    losses, norms = [], []
+    for i in range(steps):
+        metrics = one_step(split[i])
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if read_launches()["legal_mask"] != i + 1:
+            fail(f"after {i + 1} learner steps kernel 1 was launched "
+                 f"{read_launches()['legal_mask']} times")
+    launches = read_launches()
+    if launches["step"] != 0:
+        fail(f"the learner launched kernel 2 {launches['step']} times")
+    if not np.isfinite(losses).all() or not np.isfinite(norms).all():
+        fail(f"non-finite learner loss or grad_norm: {losses} {norms}")
+    if not min(norms) > 0:
+        fail(f"a learner step had grad_norm {min(norms)}")
+    if state.step != steps:
+        fail(f"the train state counts {state.step} steps after {steps}")
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(net.parameters(), params_before))
+    if not moved > 0:
+        fail("the learner steps moved no parameter")
+    if any(p.dtype != torch.float32 for p in net.parameters()):
+        fail("a parameter of the bf16 trunk is not float32")
+    loss_after = held_loss()
+    if not loss_after < loss_before:
+        fail(f"the held batch's loss went from {loss_before} to {loss_after}")
+    # The first step pays cuDNN's algorithm search and the allocator's growth.
+    ms = split[1:].mean(0) * 1e3
+    total = ms.sum()
+    print(f"training on {card}: {steps} learner steps of batch {batch_size} (64x6 bf16, D4 on); "
+          f"first step {split[0].sum() * 1e3:.2f} ms; steps 2-{steps} mean {total:.3f} ms = "
+          f"sample+copy {ms[0]:.3f} + augment+build {ms[1]:.3f} + "
+          f"forward+backward+optimizer {ms[2]:.3f}; {1e3 / total:.2f} steps/s, "
+          f"{batch_size * 1e3 / total:.1f} positions/s; loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+          f"held batch {loss_before:.4f} -> {loss_after:.4f}; grad_norm {min(norms):.3f}-"
+          f"{max(norms):.3f}; largest parameter move {moved:.2e}; launches {launches}",
+          flush=True)
+    # After the counts are read: five more steps, unsynchronized inside, as
+    # the loop takes them.
+    print(f"training on {card}: {profile_steps(one_step)}", flush=True)
     return launches
+
+
+def phase_loop(device, card):
+    """``run_loop`` at full width for two gated iterations, then a second
+    call that resumes from the checkpoint and runs a third."""
+    import dataclasses
+
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+    from alphazeroforhnefatafl_tpu_torch.train import loop
+    from alphazeroforhnefatafl_tpu_torch.train.checkpoint import CheckpointManager
+    from alphazeroforhnefatafl_tpu_torch.train.learner import init_train_state
+    from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayConfig
+    from alphazeroforhnefatafl_tpu_torch.utils.metrics import MetricsLogger
+
+    env = make_env("copenhagen", device)
+    arena = {"legal_mask": 0, "step": 0, "seconds": 0.0, "results": []}
+    learner = {"legal_mask": 0, "step": 0, "builds": 0}
+    untimed_match = loop.play_match
+    uncounted_builder = loop.make_batch_builder
+
+    def counted_builder(*args, **kw):
+        """The loop's batch builder, with the launches of each build counted."""
+        build = uncounted_builder(*args, **kw)
+
+        def counted_build(*arrays):
+            before = read_launches()
+            batch = build(*arrays)
+            after = read_launches()
+            for k in after:
+                learner[k] += after[k] - before[k]
+            learner["builds"] += 1
+            return batch
+
+        return counted_build
+
+    def counted_match(*args, **kw):
+        before = read_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = untimed_match(*args, **kw)
+        torch.cuda.synchronize()
+        arena["seconds"] += time.perf_counter() - t
+        plies = read_launches()["legal_mask"] - before["legal_mask"]
+        steps = read_launches()["step"] - before["step"]
+        if not 1 <= plies <= kw["max_game_len"]:
+            fail(f"an arena match launched kernel 1 {plies} times")
+        if steps != plies * (args[3].num_simulations + 1):
+            fail(f"an arena match of {plies} plies launched kernel 2 {steps} times, not "
+                 f"{plies} x {args[3].num_simulations + 1}")
+        arena["legal_mask"] += plies
+        arena["step"] += steps
+        arena["results"].append(result)
+        return result
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = loop.LoopConfig(
+            preset="copenhagen", channels=64, blocks=6, iterations=2, games_per_iteration=256,
+            train_steps_per_iteration=20, train_batch_size=256, min_replay_size=512,
+            arena_games=64, arena_every=1, arena_sims=64, arena_max_game_len=16,
+            gate_on="wilson", gate_threshold=0.5, checkpoint_dir=f"{tmp}/ckpt",
+            mcts=MCTSConfig(num_simulations=64),
+            selfplay=SelfPlayConfig(batch_size=256, max_game_len=8),
+        )
+        loop.play_match = counted_match
+        loop.make_batch_builder = counted_builder
+        zero_launches()
+        try:
+            t0 = time.perf_counter()
+            log = MetricsLogger(jsonl_path=f"{tmp}/metrics.jsonl")
+            state = loop.run_loop(env, config, log=log)
+            log.close()
+            first_s = time.perf_counter() - t0
+            if state.step != 40:
+                fail(f"two iterations of 20 steps left the step count at {state.step}")
+            mgr = CheckpointManager(config.checkpoint_dir)
+            if mgr.latest_iteration() != 1 or mgr.saved_extra_keys() != ("incumbent_params",):
+                fail(f"checkpoints {mgr.all_iterations()} with extra {mgr.saved_extra_keys()}")
+            probe = init_train_state(
+                make_network(env.n, channels=64, blocks=6), torch.Generator().manual_seed(1), device
+            )
+            mgr.restore(probe, None)
+            if probe.step != 40:
+                fail(f"the checkpoint restores a step count of {probe.step}, not 40")
+            for (k, a), b in zip(probe.net.state_dict().items(), state.net.state_dict().values()):
+                if not torch.equal(a, b):
+                    fail(f"the checkpoint's {k} differs from the trained net's")
+
+            t0 = time.perf_counter()
+            log = MetricsLogger(jsonl_path=f"{tmp}/metrics.jsonl")
+            state = loop.run_loop(env, dataclasses.replace(config, iterations=3), log=log)
+            log.close()
+            second_s = time.perf_counter() - t0
+        finally:
+            loop.play_match = untimed_match
+            loop.make_batch_builder = uncounted_builder
+        total = read_launches()
+        lines = [json.loads(line) for line in open(f"{tmp}/metrics.jsonl")]
+        latest = mgr.latest_iteration()
+
+    if state.step != 60 or latest != 2:
+        fail(f"after the resume: step count {state.step}, latest checkpoint {latest}")
+    resumed = [l for l in lines if "resume/iteration" in l]
+    if len(resumed) != 1 or resumed[0]["resume/iteration"] != 2.0:
+        fail(f"the second call did not resume at iteration 2: {resumed}")
+    iterations = [l for l in lines if "selfplay/games" in l]
+    if [l["step"] for l in iterations] != [0, 1, 2]:
+        fail(f"iterations logged: {[l['step'] for l in iterations]}")
+    for l in iterations:
+        for key in ("selfplay/games", "selfplay/positions", "train/loss", "train/grad_norm",
+                    "arena/games", "arena/score", "arena/promoted", "arena/gate_wilson_lb",
+                    "time/selfplay_s", "time/train_s", "replay/size"):
+            if key not in l:
+                fail(f"iteration {l['step']} logged no {key}")
+            if not isinstance(l[key], (int, float)) or not np.isfinite(l[key]):
+                fail(f"iteration {l['step']} logged {key} = {l[key]!r}")
+    if len(arena["results"]) != 3:
+        fail(f"{len(arena['results'])} arena matches in 3 iterations")
+    for r in arena["results"]:
+        if r.games != 64 or r.candidate_wins + r.incumbent_wins + r.draws + r.truncated != 64:
+            fail(f"arena counts do not add up to 64: {r.as_dict()}")
+    # Every learner step built one batch, and each build launched kernel 1
+    # once and kernel 2 never.
+    builds = learner.pop("builds")
+    if builds != state.step or learner != {"legal_mask": builds, "step": 0}:
+        fail(f"{state.step} learner steps built {builds} batches with launches {learner}")
+    # What is left after the arena and the learner is self-play: one mask
+    # and 65 steps a batched move.
+    selfplay = {k: total[k] - arena[k] - learner[k] for k in total}
+    if selfplay["legal_mask"] <= 0 or selfplay["step"] != 65 * selfplay["legal_mask"]:
+        fail(f"launches {total} less arena {arena} and learner {learner} leave {selfplay}")
+    sp_s = sum(l["time/selfplay_s"] for l in iterations)
+    train_s = sum(l["time/train_s"] for l in iterations)
+    print(f"loop on {card}: iterations 0-1 in {first_s:.2f} s, resume and iteration 2 in "
+          f"{second_s:.2f} s; per iteration self-play {sp_s / 3:.2f} s "
+          f"({selfplay['legal_mask'] // 3} moves of B=256, 64 sims), 20 learner steps "
+          f"{train_s / 3:.2f} s, arena {arena['seconds'] / 3:.2f} s "
+          f"({arena['legal_mask'] // 3} plies of B=64, 64 sims); arena results "
+          f"{[(r.candidate_wins, r.incumbent_wins, r.draws, r.truncated) for r in arena['results']]}; "
+          f"launches self-play {selfplay}, learner {learner}, "
+          f"arena {dict(legal_mask=arena['legal_mask'], step=arena['step'])}", flush=True)
+    return {"selfplay": selfplay, "learner": learner,
+            "arena": {"legal_mask": arena["legal_mask"], "step": arena["step"]}}
 
 
 def main() -> int:
@@ -455,7 +827,25 @@ def main() -> int:
     phase_net_check(device)
 
     # Phase 5: self-play at full width through both kernels.
-    launches = phase_selfplay(device, card)
+    selfplay_launches, replay = phase_selfplay(device, card)
+
+    # Phases 6-8: the learner against the CPU, training at full width, and
+    # the whole loop with its arena, checkpoint and resume.
+    phase_learner_check(device, replay)
+    learner_launches = phase_training(device, card, replay)
+    loop_launches = phase_loop(device, card)
+    by_path = {
+        name: {
+            "selfplay": selfplay_launches[name] + loop_launches["selfplay"][name],
+            "learner": learner_launches[name] + loop_launches["learner"][name],
+            "arena": loop_launches["arena"][name],
+        }
+        for name in ("legal_mask", "step")
+    }
+    for name, paths in by_path.items():
+        for path, count in paths.items():
+            if count <= 0 and (name, path) != ("step", "learner"):
+                fail(f"kernel {name} was not launched on the {path} path")
 
     sources = {
         "legal_mask": ("csrc/legal_mask.cu", "ops/legal_mask.py:148"),
@@ -471,7 +861,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"alphazeroforhnefatafl_tpu_torch/{source}",
             "replaces": f"alphazeroforhnefatafl_tpu/{replaces}",
-            "launches": launches[name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": checker.err[name],
             "ms": times[256][name]["ms"],
             "plain_ms": times[256][name]["plain_ms"],

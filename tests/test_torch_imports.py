@@ -1,5 +1,5 @@
 """The port stands alone: no module of it, and not ``chip_smoke.py``,
-imports jax, flax, optax or the JAX package, and its entry points live on the
+imports jax, flax, optax, orbax or the JAX package, and its entry points live on the
 CUDA card unless the caller asks for the CPU."""
 
 import ast
@@ -15,7 +15,7 @@ from alphazeroforhnefatafl_tpu_torch.core.rules import PRESETS
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "alphazeroforhnefatafl_tpu_torch"
-FORBIDDEN = ("jax", "flax", "optax", "alphazeroforhnefatafl_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "alphazeroforhnefatafl_tpu")
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -40,7 +40,13 @@ def test_the_walk_sees_the_whole_port():
     for must in ("chip_smoke.py", "alphazeroforhnefatafl_tpu_torch/core/env.py",
                  "alphazeroforhnefatafl_tpu_torch/core/rules.py",
                  "alphazeroforhnefatafl_tpu_torch/ops/step_kernel.py",
-                 "alphazeroforhnefatafl_tpu_torch/cli.py"):
+                 "alphazeroforhnefatafl_tpu_torch/cli.py",
+                 "alphazeroforhnefatafl_tpu_torch/core/symmetry.py",
+                 "alphazeroforhnefatafl_tpu_torch/train/learner.py",
+                 "alphazeroforhnefatafl_tpu_torch/train/arena.py",
+                 "alphazeroforhnefatafl_tpu_torch/train/checkpoint.py",
+                 "alphazeroforhnefatafl_tpu_torch/train/loop.py",
+                 "alphazeroforhnefatafl_tpu_torch/utils/metrics.py"):
         assert must in names
     # The walk does tell a forbidden import when it sees one.
     sample = ROOT / "tests" / "test_torch_env.py"
@@ -69,6 +75,10 @@ def test_port_imports_with_the_jax_names_blocked():
         "    cli.main(['selfplay', '--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
+        "try:\n"
+        "    cli.main(['train', '--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
     )
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300, cwd=ROOT)
 
@@ -82,3 +92,15 @@ def test_env_defaults_to_the_card_and_raises_without_one(monkeypatch):
         tenv.TaflEnv(*PRESETS["brandubh"])
     env = tenv.make_env("brandubh", "cpu")
     assert env.device.type == "cpu" and env.reset_batch(1).board.device.type == "cpu"
+
+
+def test_train_state_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.train.learner import init_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    net = make_network(7, channels=8, blocks=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(net, torch.Generator().manual_seed(0))
+    state = init_train_state(net, torch.Generator().manual_seed(0), "cpu")
+    assert all(p.device.type == "cpu" for p in state.net.parameters())

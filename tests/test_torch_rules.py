@@ -1,10 +1,13 @@
-"""The port's own copies of ``core/rules.py``, ``core/fen.py`` and
-``core/actions.py`` against the JAX package's: the same enums, the same
-presets field for field, the same FEN codec and the same action codec.
-Everything is an integer or a string, so the comparisons are exact."""
+"""The port's own copies of ``core/rules.py``, ``core/fen.py``,
+``core/actions.py`` and ``utils/metrics.py`` against the JAX package's: the
+same enums, the same presets field for field, the same FEN codec, the same
+action codec and the same metrics lines. Everything is an integer or a
+string, so the comparisons are exact."""
 
 import dataclasses
 import enum
+import io
+import json
 
 import numpy as np
 import pytest
@@ -12,9 +15,11 @@ import pytest
 from alphazeroforhnefatafl_tpu.core import actions as jactions
 from alphazeroforhnefatafl_tpu.core import fen as jfen
 from alphazeroforhnefatafl_tpu.core import rules as jrules
+from alphazeroforhnefatafl_tpu.utils import metrics as jmetrics
 from alphazeroforhnefatafl_tpu_torch.core import actions as tactions
 from alphazeroforhnefatafl_tpu_torch.core import fen as tfen
 from alphazeroforhnefatafl_tpu_torch.core import rules as trules
+from alphazeroforhnefatafl_tpu_torch.utils import metrics as tmetrics
 
 ENUMS = sorted(
     name for name, obj in vars(jrules).items()
@@ -112,3 +117,38 @@ def test_action_codec_matches_over_every_action(n):
         src, dst = tactions.decode_to_tiles(n, int(a))
         assert (src, dst) == jactions.decode_to_tiles(n, int(a))
         assert tactions.encode_from_tiles(n, src, dst) == int(a) == jactions.encode_from_tiles(n, src, dst)
+
+
+def _logged_lines(module, tmp_path, name):
+    """The lines a MetricsLogger of ``module`` writes, to its stream and to
+    its file, for one fixed sequence of calls (elapsed time dropped)."""
+    stream, path = io.StringIO(), tmp_path / name
+    log = module.MetricsLogger(stream=stream, jsonl_path=str(path))
+    log.scalar("resume/iteration", 2)  # no step yet: joins the next step's line
+    log.scalar("selfplay/games", 7, step=2)
+    log.scalar("train/loss", 1.23456789, step=2)
+    log.scalar("train/loss", 1.5, step=2)  # overwrites
+    log.scalar("arena/score", 0.5, step=3)  # another step: flushes step 2 first
+    log.scalar("train/loss", float("nan"), step=3)
+    log.scalar("train/grad_norm", float("inf"), step=3)
+    log.flush(step=3)
+    log.flush()  # nothing pending: no line
+    log.scalar("stop/deadline_reached", 1.0)
+    log.flush()
+    log.close()
+    lines = [json.loads(l) for l in stream.getvalue().splitlines()]
+    assert lines == [json.loads(l) for l in path.read_text().splitlines()]
+    for line in lines:
+        assert isinstance(line.pop("t"), float)
+    return lines
+
+
+def test_metrics_logger_copy_matches(tmp_path):
+    assert tmetrics is not jmetrics
+    got = _logged_lines(tmetrics, tmp_path, "port.jsonl")
+    assert got == _logged_lines(jmetrics, tmp_path, "jax.jsonl")
+    assert got == [
+        {"step": 2, "resume/iteration": 2.0, "selfplay/games": 7.0, "train/loss": 1.5},
+        {"step": 3, "arena/score": 0.5, "train/loss": "nan", "train/grad_norm": "inf"},
+        {"step": None, "stop/deadline_reached": 1.0},
+    ]
