@@ -2,15 +2,19 @@
 
 ``selfplay`` runs self-play games with a randomly initialized net and prints
 the statistics as JSON; ``train`` runs the AlphaZero loop and prints one JSON
-line of metrics per iteration. Their flags are those of the JAX CLI's
-``selfplay`` and ``train`` plus ``--device``::
+line of metrics per iteration (``--gumbel`` selects Gumbel root selection);
+``ladder`` plays a round robin over the checkpoints of a run and prints
+their Elo ratings. Their flags are those of the JAX CLI's ``selfplay``,
+``train`` and ``ladder`` plus ``--device``::
 
     python -m alphazeroforhnefatafl_tpu_torch.cli selfplay --preset copenhagen \\
         --channels 64 --blocks 6 --sims 128
     python -m alphazeroforhnefatafl_tpu_torch.cli train --preset copenhagen \\
         --channels 64 --blocks 6 --sims 64 --checkpoint-dir runs/cph/ckpt
+    python -m alphazeroforhnefatafl_tpu_torch.cli ladder --preset copenhagen \\
+        --ckpt runs/cph/ckpt
 
-Both run on the CUDA card unless ``--cpu`` (or ``--device cpu``) is given,
+All run on the CUDA card unless ``--cpu`` (or ``--device cpu``) is given,
 and exit with an error when there is no card.
 """
 
@@ -96,14 +100,46 @@ def cmd_train(args):
         seed=args.seed,
         mcts=MCTSConfig(
             num_simulations=args.sims,
-            # The search raises NotImplementedError on "gumbel" until that
-            # root selection is ported.
             root_selection="gumbel" if args.gumbel else "puct",
             dirichlet_alpha_scale=args.alpha_scale,
         ),
         selfplay=SelfPlayConfig(batch_size=args.selfplay_batch),
     )
     run_loop(env, cfg)
+
+
+def cmd_ladder(args):
+    """Round-robin the checkpoints in a run directory and fit Elo ratings."""
+    import torch
+
+    from .core.env import make_env
+    from .models.network import make_network
+    from .search.mcts import MCTSConfig
+    from .train.arena import ladder
+    from .train.checkpoint import CheckpointManager
+    from .train.learner import init_train_state
+
+    device = _device(args)
+    env = make_env(args.preset, device)
+
+    def fresh_state():
+        net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm)
+        return init_train_state(net, torch.Generator().manual_seed(args.seed), device)
+
+    mgr = CheckpointManager(args.ckpt)
+    named = [("init", fresh_state().net.eval())]
+    for it in mgr.all_iterations():
+        state = fresh_state()
+        mgr.restore(state, None, iteration=it)  # the replay ring is not read
+        named.append((f"iter{it}", state.net.eval()))
+    ratings, _, _ = ladder(
+        env,
+        named,
+        MCTSConfig(num_simulations=args.sims, max_children=32, dirichlet_eps=0.0),
+        games_per_pair=args.games,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+    )
+    print(json.dumps({"ratings": ratings}, indent=2))
 
 
 def main(argv=None):
@@ -135,10 +171,20 @@ def main(argv=None):
     p.add_argument("--arena-games", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--gumbel", action="store_true",
-                   help="gumbel sequential-halving root selection (not ported yet: raises)")
+                   help="gumbel sequential-halving root selection")
     p.add_argument("--alpha-scale", type=float, default=None,
                    help="dirichlet alpha = scale / num_legal_moves")
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("ladder", help="Elo ladder over a run's checkpoints")
+    _add_common(p)
+    p.add_argument("--ckpt", required=True, help="checkpoint directory of a run")
+    p.add_argument("--games", type=int, default=16)
+    p.add_argument("--sims", type=int, default=64)
+    p.add_argument("--channels", type=int, default=64)
+    p.add_argument("--blocks", type=int, default=6)
+    p.add_argument("--norm", default="group", choices=["group", "none"])
+    p.set_defaults(fn=cmd_ladder)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -23,7 +23,7 @@ from .replay import ReplayBuffer
 @dataclass(frozen=True)
 class SelfPlayConfig:
     """The JAX ``SelfPlayConfig`` without its TPU transport knobs
-    (``search_chunk``, ``scan_moves``) and without the Gumbel option."""
+    (``search_chunk``, ``scan_moves``)."""
 
     batch_size: int = 64
     temp_threshold: int = 12  # moves with temp=1 before switching to argmax
@@ -41,6 +41,12 @@ class SelfPlayConfig:
     resign_disable_frac: float = 0.1
     #: No resignation before this many moves have been played.
     resign_min_moves: int = 0
+    #: Under Gumbel root selection: while the temperature is on (move <
+    #: temp_threshold), sample the move from the improved policy
+    #: softmax(logits + sigma(completed Q)) instead of playing the
+    #: sequential-halving winner (the stochastic variant of Danihelka et al.
+    #: 2022, section 5). No effect under PUCT.
+    gumbel_sample_temp_moves: bool = False
 
 
 @dataclass
@@ -116,9 +122,19 @@ class SelfPlayActor:
         top_p, top_a = _top_k(action_probs, self.cfg.policy_k)
         return torch.where(top_p > 0, top_a, -1).to(torch.int32), top_p
 
-    def move_tail(self, states, legal, action_probs, temps, generator):
-        """Action selection, env step and policy target of one move."""
-        actions = select_actions(action_probs, legal, temps, generator)
+    def move_tail(self, states, legal, action_probs, temps, generator, best_action=None):
+        """Action selection, env step and policy target of one move.
+
+        Under Gumbel root selection the move is the search's ``best_action``
+        (exploration comes from the sampled root Gumbels, not a
+        temperature), unless ``gumbel_sample_temp_moves`` samples it."""
+        if self.mcts.config.root_selection == "gumbel":
+            actions = best_action
+            if self.cfg.gumbel_sample_temp_moves:
+                sampled = select_actions(action_probs, legal, temps, generator)
+                actions = torch.where(temps > 0, sampled, actions)
+        else:
+            actions = select_actions(action_probs, legal, temps, generator)
         new_states, info = self.env.step_many(states, actions)
         top_a, top_p = self.policy_target(action_probs)
         return new_states, actions, info, top_a, top_p
@@ -132,7 +148,9 @@ class SelfPlayActor:
         """
         legal = self.env.legal_mask_many(states)
         result = self.mcts.search(states, legal, generator, add_noise=True)
-        out = self.move_tail(states, legal, result.action_probs, temps, generator)
+        out = self.move_tail(
+            states, legal, result.action_probs, temps, generator, result.best_action
+        )
         self.moves_played += 1
         return out + (result.root_value, result.prior_fallback_rate)
 

@@ -8,8 +8,11 @@ Phases, in order; any failure exits non-zero:
 2. build both CUDA kernels from ``alphazeroforhnefatafl_tpu_torch/csrc``;
 3. kernel 1 (legal mask) against its plain PyTorch version on the card,
    bit for bit: Copenhagen playout states and dense random boards at
-   B=4096 and at B=64 (the arena's batch), every preset at B=256 (the
-   self-play and learner batch), and 15x15 and 21x21 board batches; then
+   B=4096 and at B=64 (the arena's batch), playout states at B=512 and
+   B=1024 (the batches of a two- and a four-leaf wave of 256 games) and at
+   B=32 (half an arena batch, what a config match searches), every preset
+   at B=256 (the self-play and learner batch), and 15x15 and 21x21 board
+   batches; then
    the cases that a kernel serving a group of games per CTA makes risky:
    batches that the group does not divide (B = 1, 3, 257, odd batches of
    the 7x7 and 9x9 presets), 19x19 boards (whose groups of three start off
@@ -22,13 +25,15 @@ Phases, in order; any failure exits non-zero:
    of each kernel beside its plain version at the self-play shapes, with
    the least time the card could take for the same bytes (each input read
    once, each output written once, at 3.35 TB/s) and the share of that
-   bound the kernel reaches; B=1 is timed too, as what a launch of either
-   kernel costs with next to no work in it;
+   bound the kernel reaches, at B=256, B=512 (a two-leaf wave) and B=4096;
+   B=1 is timed too, as what a launch of either kernel costs with next to
+   no work in it;
 5. self-play at full width: 11x11 Copenhagen, a 64-channel 6-block
    GroupNorm net with a bf16 trunk and random weights from a seed,
    ``MCTSConfig()`` (128 simulations, 128 children), 256 games of at most 8
-   moves in a batch of 256. Both kernels' launch counters must grow during
-   this phase;
+   moves in a batch of 256. Every search must give each game 128 root
+   visits, and the launches must be exactly one of kernel 1 and 129 of
+   kernel 2 a move;
 6. the learner check: the same 64x6 float32 net and the same batch (built
    from phase 5's replay) take one train step on the card and on the CPU
    with TF32 off; loss and ``grad_norm`` agree within 1e-4. The batch
@@ -48,12 +53,33 @@ Phases, in order; any failure exits non-zero:
    resume at iteration 2 from the checkpoint. The launches are counted
    where they are made: around every arena match (kernel 1 once and kernel
    2 65 times a ply) and around every batch the learner builds (kernel 1
-   once); the rest is self-play's.
+   once); the rest is self-play's;
+9. multi-leaf self-play at full width: phase 5 again with
+   ``MCTSConfig(leaves_per_wave=2)`` and with ``leaves_per_wave=4``, then
+   the serial search once more: 8 moves each, 128 root visits for every
+   game, kernel 1 once a move and kernel 2 exactly ``128 / L + 1`` times a
+   move, at a batch of ``256 * L``. One line sets the moves per second,
+   the seconds a move and the host seconds inside the tree traversals of
+   the serial, two-leaf and four-leaf searches side by side. Then the
+   three move in turns, one batched move each for six rounds after a warm
+   one, and their median seconds a move are set side by side: a host that
+   slows down through a run slows all three alike there;
+10. Gumbel self-play at full width: ``root_selection="gumbel"``, 128
+   simulations, 4 moves: every ``best_action`` legal, every row of
+   ``action_probs`` sums to 1 with no mass on an illegal action, 129
+   launches of kernel 2 a move;
+11. what judges a run: ``play_config_match`` of the two-leaf search against
+   the serial one with one net (64 games, 64 simulations, 16 plies: a ply
+   launches kernel 1 twice at B=32 and kernel 2 ``64 + 32 + 1`` times), and
+   a ``ladder`` over the net and the ``uniform`` and ``random`` anchors (16
+   games a pair, 32 simulations, 16 plies: three matches, a ply launches
+   kernel 1 once and kernel 2 33 times; finite ratings, the first 0).
 
-The launch counters are set to 0 before each of the phases 5, 7 and 8 and
-read after it. The second-to-last line is ``{"kernels": [...]}``, whose
+The launch counters are set to 0 before each of the phases 5 and 7 to 11
+and read after it. The second-to-last line is ``{"kernels": [...]}``, whose
 ``launches`` sum those phases and whose ``launches_by_path`` split them
-into self-play, learner and arena; the last line is
+into self-play, learner, arena, multi-leaf self-play, Gumbel self-play,
+config match and ladder; the last line is
 ``{"ok": true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
@@ -196,6 +222,11 @@ def phase_kernels(device, checker):
     # The arena's shape: 64 games of at most 16 plies.
     playout_states(cph, 64, 16, gen, checker, "copenhagen B=64 playout")
     dense_case(cph, 64, "copenhagen B=64 dense")
+    # A wave of two and of four leaves for each of 256 games, and half an
+    # arena batch (a config match searches each half on its own).
+    for B, plies in ((512, 12), (1024, 12), (32, 16)):
+        playout_states(cph, B, plies, gen, checker, f"copenhagen B={B} playout")
+        dense_case(cph, B, f"copenhagen B={B} dense")
     for preset in PRESETS:
         env = make_env(preset, device)
         playout_states(env, 256, 24, gen, checker, f"{preset} B=256 playout")
@@ -323,7 +354,8 @@ def timing_case(env, B, gen, checker):
 
 def phase_timing(device, checker, card):
     """Kernel and plain times at the self-play shapes (Copenhagen playout
-    states at B=256, the self-play batch, and B=4096), each kernel beside
+    states at B=256, the self-play batch, B=512, a two-leaf wave of it, and
+    B=4096), each kernel beside
     the bound its bytes set; and at B=1, where the card's time is what a
     launch of the kernel costs with next to no work in it."""
     import torch
@@ -333,7 +365,7 @@ def phase_timing(device, checker, card):
     env = make_env("copenhagen", device)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     times = {}
-    for B in (1, 256, 4096):
+    for B in (1, 256, 512, 4096):
         kernel, plain, nbytes = timing_case(env, B, gen, checker)
         times[B] = {}
         for k in kernel:
@@ -373,25 +405,77 @@ def phase_net_check(device):
     print("net: float32 forward on the card matches the CPU within 1e-4", flush=True)
 
 
-def phase_selfplay(device, card):
+def smoke_net(device):
+    """The full-width net of the self-play phases: 64 channels, 6 GroupNorm
+    blocks, bf16 trunk, random weights from the seed."""
     import torch
 
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.models.network import init_params, make_network
-    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
-    from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays
-    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+
+    n = make_env("copenhagen", device).n
+    net = make_network(n, channels=64, blocks=6, norm="group", dtype=torch.bfloat16)
+    return init_params(net, torch.Generator().manual_seed(SEED)).to(device).eval()
+
+
+def phase_selfplay(device, card, mcts_cfg, moves, label):
+    """256 Copenhagen games of ``moves`` moves in a batch of 256 under
+    ``mcts_cfg``. Returns the launches, the replay, the moves per second,
+    the seconds of each batched move and the host seconds each spent inside
+    the tree traversals."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
     from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPlayConfig
 
     env = make_env("copenhagen", device)
-    net = make_network(env.n, channels=64, blocks=6, norm="group", dtype=torch.bfloat16)
-    net = init_params(net, torch.Generator().manual_seed(SEED)).to(device).eval()
-    mcts_cfg = MCTSConfig()
-    sp_cfg = SelfPlayConfig(batch_size=256, max_game_len=8)
+    net = smoke_net(device)
+    sp_cfg = SelfPlayConfig(batch_size=256, max_game_len=moves)
     actor = SelfPlayActor(env, net, mcts_cfg, sp_cfg, device=device)
     replay = ReplayBuffer(env, sp_cfg.batch_size * sp_cfg.max_game_len * 2, sp_cfg.policy_k)
     gen = torch.Generator(device=device).manual_seed(SEED)
+    sims, gumbel = mcts_cfg.num_simulations, mcts_cfg.root_selection == "gumbel"
+
+    # Every search's result is checked where it is made.
+    unchecked_search = actor.mcts.search
+
+    def checked_search(states, legal, *args, **kw):
+        result = unchecked_search(states, legal, *args, **kw)
+        if not bool((result.root_visits == sims).all()):
+            fail(f"{label}: root visits {result.root_visits.unique().tolist()}, not {sims}")
+        probs = result.action_probs
+        if not torch.allclose(probs.sum(1), torch.ones_like(probs[:, 0]), atol=1e-5):
+            fail(f"{label}: action_probs rows do not sum to 1")
+        if float(probs[~legal].abs().sum()) != 0.0:
+            fail(f"{label}: action_probs put mass on an illegal action")
+        if not bool(legal.gather(1, result.best_action.long()[:, None]).all()):
+            fail(f"{label}: a best_action is illegal")
+        if not bool(torch.isfinite(result.root_value).all()):
+            fail(f"{label}: non-finite root value")
+        return result
+
+    actor.mcts.search = checked_search
+
+    # Host seconds inside the traversals, and under Gumbel inside the choice
+    # of the forced root slot: each tree level ends in a host sync, so the
+    # host's clock sees what the walk costs; the root slot's choice ends in
+    # none, so its figure is the host's time to queue its launches.
+    inside = {"_traverse": [0.0], "_forced_root_slot": [0.0]}
+
+    def host_timed(name):
+        untimed = getattr(actor.mcts, name)
+
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = untimed(*args, **kw)
+            inside[name][-1] += time.perf_counter() - t
+            return out
+
+        setattr(actor.mcts, name, timed)
+
+    for name in inside:
+        host_timed(name)
 
     # Per-move wall times. The play loop copies each move's results to the
     # host right after the move, so these synchronizes add no wait of their
@@ -405,23 +489,24 @@ def phase_selfplay(device, card):
         out = untimed_move(*args)
         torch.cuda.synchronize()
         move_s.append(time.perf_counter() - t)
+        for seconds in inside.values():
+            seconds.append(0.0)
         return out
 
     actor.move = timed_move
 
-    batched_legal_mask.launches = 0
-    step_arrays.launches = 0
+    zero_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = actor.play(replay, gen, num_games=256)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"legal_mask": batched_legal_mask.launches, "step": step_arrays.launches}
+    launches = read_launches()
 
     d = stats.as_dict()
-    print(f"selfplay stats: {json.dumps(d)}", flush=True)
+    print(f"selfplay {label} stats: {json.dumps(d)}", flush=True)
     if stats.games < 256:
-        fail(f"self-play finished {stats.games} games, expected >= 256")
+        fail(f"self-play {label} finished {stats.games} games, expected >= 256")
     if replay.size != stats.positions or replay.size == 0:
         fail(f"replay holds {replay.size} positions, stats say {stats.positions}")
     if not all(np.isfinite(v) for v in d.values()):
@@ -432,19 +517,25 @@ def phase_selfplay(device, card):
     psum = replay.policy_p[: replay.size].sum(1)
     if not np.allclose(psum, 1.0, atol=1e-5):
         fail(f"policy targets do not sum to 1 (worst {np.abs(psum - 1).max()})")
-    for k, v in launches.items():
-        if v <= 0:
-            fail(f"kernel {k} was not launched during self-play")
-    moves = actor.moves_played
-    games_moves = moves * sp_cfg.batch_size
-    rate = games_moves / wall
-    print(f"selfplay on {card}: {moves} batched moves of B={sp_cfg.batch_size} in {wall:.3f} s; "
-          f"{rate:.1f} moves/s, {rate * mcts_cfg.num_simulations:.1f} sims/s; launches {launches}",
-          flush=True)
+    if actor.moves_played != moves:
+        fail(f"self-play {label} made {actor.moves_played} batched moves, not {moves}")
+    # One root mask a move; one env step a wave and one for the move.
+    want = {"legal_mask": moves, "step": moves * (sims // mcts_cfg.leaves_per_wave + 1)}
+    if launches != want:
+        fail(f"self-play {label} launched {launches}, not {want}")
+    rate = moves * sp_cfg.batch_size / wall
+    print(f"selfplay {label} on {card}: {moves} batched moves of B={sp_cfg.batch_size} in "
+          f"{wall:.3f} s; {rate:.1f} moves/s, {rate * sims:.1f} sims/s; launches {launches}"
+          + ("; every best_action legal, no mass on illegal actions" if gumbel else ""), flush=True)
     q = np.percentile(move_s[1:], [25, 50, 75])
-    print(f"selfplay move seconds: first {move_s[0]:.4f}; moves 2-{len(move_s)} quartiles "
-          f"{q[0]:.4f} / {q[1]:.4f} / {q[2]:.4f}", flush=True)
-    return launches, replay
+    tq = np.percentile(inside["_traverse"][1:moves], [25, 50, 75])
+    fq = np.percentile(inside["_forced_root_slot"][1:moves], [25, 50, 75])
+    print(f"selfplay {label} move seconds: first {move_s[0]:.4f}; moves 2-{len(move_s)} quartiles "
+          f"{q[0]:.4f} / {q[1]:.4f} / {q[2]:.4f}; of them inside the tree traversals "
+          f"{tq[0]:.4f} / {tq[1]:.4f} / {tq[2]:.4f}"
+          + (f", choosing the forced root slot {fq[0]:.4f} / {fq[1]:.4f} / {fq[2]:.4f}"
+             if gumbel else ""), flush=True)
+    return dict(launches=launches, replay=replay, rate=rate, move_s=q[1], traverse_s=tq[1])
 
 
 def read_launches():
@@ -791,6 +882,160 @@ def phase_loop(device, card):
             "arena": {"legal_mask": arena["legal_mask"], "step": arena["step"]}}
 
 
+def phase_interleaved(device, card, rounds=6):
+    """The serial, two-leaf and four-leaf searches move in turns, one
+    batched move of 256 games each, so that a host that speeds up or slows
+    down through a run does so for all three alike. Returns the launches of
+    each search."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+    from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPlayConfig
+
+    env = make_env("copenhagen", device)
+    net = smoke_net(device)
+    B = 256
+    configs = {"serial": MCTSConfig(), "L=2": MCTSConfig(leaves_per_wave=2),
+               "L=4": MCTSConfig(leaves_per_wave=4)}
+    actors = {k: SelfPlayActor(env, net, c, SelfPlayConfig(batch_size=B), device=device)
+              for k, c in configs.items()}
+    states = {k: env.reset_batch(B) for k in configs}
+    gens = {k: torch.Generator(device=device).manual_seed(SEED) for k in configs}
+    temps = torch.ones((B,), device=device)
+    seconds = {k: [] for k in configs}
+    launches = {k: {"legal_mask": 0, "step": 0} for k in configs}
+    order = list(configs)
+    zero_launches()
+    for r in range(rounds + 1):  # the first round warms up and is not timed
+        for k in order[r % 3:] + order[:r % 3]:
+            before = read_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            states[k] = actors[k].move(states[k], temps, gens[k])[0]
+            torch.cuda.synchronize()
+            if r > 0:
+                seconds[k].append(time.perf_counter() - t)
+            for name, count in read_launches().items():
+                launches[k][name] += count - before[name]
+    for k, c in configs.items():
+        want = {"legal_mask": rounds + 1,
+                "step": (rounds + 1) * (c.num_simulations // c.leaves_per_wave + 1)}
+        if launches[k] != want:
+            fail(f"interleaved {k} launched {launches[k]}, not {want}")
+        if bool(states[k].terminated.any()):
+            fail(f"interleaved {k}: a game ended within {rounds + 1} moves")
+    med = {k: float(np.median(v)) for k, v in seconds.items()}
+    print(f"selfplay in turns on {card}: {rounds} rounds of one move of B={B} each "
+          f"({configs['serial'].num_simulations} sims), "
+          f"median seconds a move and moves/s: "
+          + ", ".join(f"{k} {m:.4f} ({B / m:.1f}; {med['serial'] / m:.2f} times serial)"
+                      for k, m in med.items())
+          + "; all seconds " + json.dumps({k: [round(x, 4) for x in v] for k, v in seconds.items()}),
+          flush=True)
+    return launches
+
+
+def phase_config_match(device, card):
+    """``play_config_match`` at full width: the two-leaf search against the
+    serial one with one net, 64 games of 16 plies at 64 simulations."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+    from alphazeroforhnefatafl_tpu_torch.train.arena import play_config_match
+
+    env = make_env("copenhagen", device)
+    net = smoke_net(device)
+    sims, games, plies = 64, 64, 16
+    serial = MCTSConfig(num_simulations=sims, dirichlet_eps=0.0)
+    two_leaf = MCTSConfig(num_simulations=sims, dirichlet_eps=0.0, leaves_per_wave=2)
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = play_config_match(env, net, net, two_leaf, serial, num_games=games, max_game_len=plies,
+                          generator=torch.Generator(device=device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if r.games != games or r.candidate_wins + r.incumbent_wins + r.draws + r.truncated != games:
+        fail(f"config match counts do not add up to {games}: {r.as_dict()}")
+    if not np.isfinite(list(r.as_dict().values())).all():
+        fail(f"non-finite config match result: {r.as_dict()}")
+    # A ply: one root mask for each half (B=32), 64 serial waves, 32 two-leaf
+    # waves and the move's step.
+    played = launches["legal_mask"] // 2
+    want = {"legal_mask": 2 * played, "step": played * (sims + sims // 2 + 1)}
+    if not 1 <= played <= plies or launches != want:
+        fail(f"a config match of {played} plies launched {launches}, not {want}")
+    print(f"config match on {card}: two-leaf against serial, {games} games, {sims} sims, "
+          f"{played} plies in {seconds:.2f} s ({seconds / played:.3f} s a ply); result "
+          f"{(r.candidate_wins, r.incumbent_wins, r.draws, r.truncated)}; launches {launches}",
+          flush=True)
+    return launches
+
+
+def phase_ladder(device, card):
+    """``ladder`` at full width over the random-weight net and two net-free
+    anchors: three matches of 16 games, 32 simulations, 16 plies."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+    from alphazeroforhnefatafl_tpu_torch.train import arena
+    from alphazeroforhnefatafl_tpu_torch.train.anchors import ANCHOR_CODES, make_anchored_evaluate
+
+    env = make_env("copenhagen", device)
+    entries = [("net", smoke_net(device))] + [
+        (name, make_anchored_evaluate(env, ANCHOR_CODES[name])) for name in ("uniform", "random")]
+    sims, games, plies = 32, 16, 16
+    matches = []
+    uncounted_match = arena.play_match
+
+    def counted_match(*args, **kw):
+        before = read_launches()
+        result = uncounted_match(*args, **kw)
+        after = read_launches()
+        played = after["legal_mask"] - before["legal_mask"]
+        steps = after["step"] - before["step"]
+        if not 1 <= played <= plies or steps != played * (sims + 1):
+            fail(f"a ladder match of {played} plies launched kernel 2 {steps} times")
+        if result.games != games:
+            fail(f"a ladder match played {result.games} games, not {games}")
+        matches.append(result)
+        return result
+
+    arena.play_match = counted_match
+    zero_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ratings, wins, played_games = arena.ladder(
+            env, entries, MCTSConfig(num_simulations=sims, dirichlet_eps=0.0),
+            games_per_pair=games, max_game_len=plies,
+            generator=torch.Generator(device=device).manual_seed(SEED))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        arena.play_match = uncounted_match
+    launches = read_launches()
+    if len(matches) != 3:
+        fail(f"a ladder over three entries played {len(matches)} matches")
+    if list(ratings) != ["net", "uniform", "random"] or ratings["net"] != 0.0:
+        fail(f"ladder ratings {ratings}")
+    if not np.isfinite(list(ratings.values())).all():
+        fail(f"non-finite ladder ratings {ratings}")
+    if not np.array_equal(played_games, games * (1 - np.eye(3))) or \
+            not np.array_equal(wins + wins.T, played_games):
+        fail(f"ladder tables do not add up: wins {wins.tolist()} games {played_games.tolist()}")
+    print(f"ladder on {card}: net, uniform, random; 3 matches of {games} games, {sims} sims, "
+          f"at most {plies} plies in {seconds:.2f} s; ratings "
+          f"{ {k: round(v, 1) for k, v in ratings.items()} }; results "
+          f"{[(r.candidate_wins, r.incumbent_wins, r.draws, r.truncated) for r in matches]}; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -827,18 +1072,46 @@ def main() -> int:
     phase_net_check(device)
 
     # Phase 5: self-play at full width through both kernels.
-    selfplay_launches, replay = phase_selfplay(device, card)
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+
+    serial = phase_selfplay(device, card, MCTSConfig(), 8, "serial")
+    replay = serial["replay"]
 
     # Phases 6-8: the learner against the CPU, training at full width, and
     # the whole loop with its arena, checkpoint and resume.
     phase_learner_check(device, replay)
     learner_launches = phase_training(device, card, replay)
     loop_launches = phase_loop(device, card)
+
+    # Phase 9: multi-leaf waves, then the serial search once more, so that
+    # the three are read side by side within one run.
+    multi = {L: phase_selfplay(device, card, MCTSConfig(leaves_per_wave=L), 8, f"L={L}")
+             for L in (2, 4)}
+    serial_again = phase_selfplay(device, card, MCTSConfig(), 8, "serial again")
+    print(f"selfplay on {card}, 256 games, 128 sims, 8 moves, moves/s (median seconds a move; of "
+          f"them inside the tree traversals): serial {serial['rate']:.1f} ({serial['move_s']:.4f}; "
+          f"{serial['traverse_s']:.4f}), "
+          + ", ".join(f"L={L} {r['rate']:.1f} ({r['move_s']:.4f}; {r['traverse_s']:.4f})"
+                      for L, r in multi.items())
+          + f", serial again {serial_again['rate']:.1f} ({serial_again['move_s']:.4f}; "
+          f"{serial_again['traverse_s']:.4f})", flush=True)
+    turns = phase_interleaved(device, card)
+
+    # Phases 10 and 11: Gumbel root selection, then what judges a run.
+    gumbel = phase_selfplay(device, card, MCTSConfig(root_selection="gumbel"), 4, "gumbel")
+    config_match_launches = phase_config_match(device, card)
+    ladder_launches = phase_ladder(device, card)
     by_path = {
         name: {
-            "selfplay": selfplay_launches[name] + loop_launches["selfplay"][name],
+            "selfplay": serial["launches"][name] + serial_again["launches"][name]
+            + loop_launches["selfplay"][name] + turns["serial"][name],
             "learner": learner_launches[name] + loop_launches["learner"][name],
             "arena": loop_launches["arena"][name],
+            "selfplay_multileaf": sum(r["launches"][name] for r in multi.values())
+            + turns["L=2"][name] + turns["L=4"][name],
+            "selfplay_gumbel": gumbel["launches"][name],
+            "config_match": config_match_launches[name],
+            "ladder": ladder_launches[name],
         }
         for name in ("legal_mask", "step")
     }
@@ -871,6 +1144,8 @@ def main() -> int:
             "library_ms": None,
             "device_ms": times[256][name]["device_ms"],
             "bytes": times[256][name]["bytes"],
+            # The batch of a two-leaf wave of 256 games.
+            "at_b512": times[512][name],
         }
         for name, (source, replaces) in sources.items()
     ]

@@ -44,6 +44,7 @@ def test_the_walk_sees_the_whole_port():
                  "alphazeroforhnefatafl_tpu_torch/core/symmetry.py",
                  "alphazeroforhnefatafl_tpu_torch/train/learner.py",
                  "alphazeroforhnefatafl_tpu_torch/train/arena.py",
+                 "alphazeroforhnefatafl_tpu_torch/train/anchors.py",
                  "alphazeroforhnefatafl_tpu_torch/train/checkpoint.py",
                  "alphazeroforhnefatafl_tpu_torch/train/loop.py",
                  "alphazeroforhnefatafl_tpu_torch/utils/metrics.py"):
@@ -77,6 +78,10 @@ def test_port_imports_with_the_jax_names_blocked():
         "    assert e.code == 0\n"
         "try:\n"
         "    cli.main(['train', '--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        "try:\n"
+        "    cli.main(['ladder', '--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
     )

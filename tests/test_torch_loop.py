@@ -355,9 +355,14 @@ def test_cli_train_defaults_to_the_card_and_raises_without_one(monkeypatch):
         cli.main(TRAIN_ARGS)
 
 
-def test_cli_train_gumbel_is_not_ported_and_says_so():
-    with pytest.raises(NotImplementedError, match="puct"):
-        cli.main(TRAIN_ARGS + ["--cpu", "--gumbel"])
+def test_cli_train_gumbel_is_not_ported_and_says_so(capsys, tmp_path):
+    """The name is from when ``--gumbel`` raised ``NotImplementedError``.
+    Gumbel root selection is ported: the flag trains and checkpoints."""
+    assert not cli.main(TRAIN_ARGS + ["--cpu", "--gumbel", "--checkpoint-dir", str(tmp_path / "c")])
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert lines[-1]["step"] == 0 and lines[-1]["selfplay/games"] >= 2
+    assert np.isfinite(lines[-1]["train/loss"])
+    assert CheckpointManager(str(tmp_path / "c")).latest_iteration() == 0
 
 
 def test_cli_train_flags_match_the_jax_cli():
