@@ -1,21 +1,27 @@
 """Command-line interface of the PyTorch port.
 
-``selfplay`` runs self-play games with a randomly initialized net and prints
-the statistics as JSON; ``train`` runs the AlphaZero loop and prints one JSON
-line of metrics per iteration (``--gumbel`` selects Gumbel root selection);
-``ladder`` plays a round robin over the checkpoints of a run and prints
-their Elo ratings. Their flags are those of the JAX CLI's ``selfplay``,
-``train`` and ``ladder`` plus ``--device``::
+``play`` is the successor of the reference's interactive demo loop: print
+the board, prompt for a move like ``a8-a11``, apply it on the host oracle,
+report the outcome; ``--ai`` adds an MCTS opponent. ``selfplay`` runs
+self-play games with a randomly initialized net and prints the statistics as
+JSON; ``train`` runs the AlphaZero loop and prints one JSON line of metrics
+per iteration (``--gumbel`` selects Gumbel root selection); ``ladder`` plays
+a round robin over the checkpoints of a run and prints their Elo ratings;
+``bench`` runs the headline benchmark (:mod:`.bench`) and prints its JSON
+line. Their flags are those of the JAX CLI plus ``--device``::
 
+    python -m alphazeroforhnefatafl_tpu_torch.cli play --preset brandubh --ai defender
     python -m alphazeroforhnefatafl_tpu_torch.cli selfplay --preset copenhagen \\
         --channels 64 --blocks 6 --sims 128
     python -m alphazeroforhnefatafl_tpu_torch.cli train --preset copenhagen \\
         --channels 64 --blocks 6 --sims 64 --checkpoint-dir runs/cph/ckpt
     python -m alphazeroforhnefatafl_tpu_torch.cli ladder --preset copenhagen \\
         --ckpt runs/cph/ckpt
+    python -m alphazeroforhnefatafl_tpu_torch.cli bench
 
 All run on the CUDA card unless ``--cpu`` (or ``--device cpu``) is given,
-and exit with an error when there is no card.
+and exit with an error when there is no card; ``play`` without ``--ai``
+runs only the host oracle and needs no card.
 """
 
 from __future__ import annotations
@@ -43,6 +49,96 @@ def _add_common(p):
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
     p.add_argument("--seed", type=int, default=0)
+
+
+def cmd_play(args):
+    from .core import fen
+    from .core.oracle import Game, InvalidPlayError, Play
+    from .core.rules import PRESETS, Side
+
+    rules, board = PRESETS[args.preset]
+    game = Game(rules, board)
+    mcts_side = None
+    if args.ai is not None:
+        mcts_side = Side.ATTACKER if args.ai == "attacker" else Side.DEFENDER
+        ai = _make_ai(args)
+
+    print(f"alphazeroforhnefatafl-tpu: {args.preset}")
+    while True:
+        print("Board:")
+        print(fen.board_to_display_str(game.state.board))
+        print(f"{game.state.side_to_play.name.title()} to play.")
+        if mcts_side is not None and game.state.side_to_play == mcts_side:
+            mv = ai(game)
+            print(f"AI plays {mv}")
+            outcome = game.do_play(mv)
+        else:
+            try:
+                line = input("Please enter your move: ").strip()
+            except EOFError:
+                return
+            if line in ("quit", "exit"):
+                return
+            if line == "undo":
+                game.undo_last_play()
+                continue
+            try:
+                play = Play.from_str(line)
+            except Exception as e:
+                print(f"Invalid move ({e}). Try again.")
+                continue
+            try:
+                outcome = game.do_play(play)
+            except InvalidPlayError as e:
+                print(f"Invalid move ({e.reason.name}). Try again.")
+                continue
+        if outcome is not None:
+            if outcome.winner is None:
+                print(f"Game over. Draw ({outcome.draw_reason.name}).")
+            else:
+                print(
+                    f"Game over. Winner is {outcome.winner.name.title()} "
+                    f"({outcome.win_reason.name})."
+                )
+            print("Final board:")
+            print(fen.board_to_display_str(game.state.board))
+            return
+
+
+def _make_ai(args):
+    """An MCTS move chooser over the oracle game: a 32x3 net from ``--seed``,
+    ``--sims`` simulations, no root noise, on the flags' device."""
+    import torch
+
+    from .core import actions as A
+    from .core.env import TaflEnv
+    from .core.oracle import Play
+    from .core.rules import PRESETS
+    from .models.network import init_params, make_network
+    from .search.mcts import MCTS, MCTSConfig
+
+    device = _device(args)
+    rules, board = PRESETS[args.preset]
+    env = TaflEnv(rules, board, device)
+    net = make_network(env.n, channels=32, blocks=3)
+    init_params(net, torch.Generator().manual_seed(args.seed))
+    net = net.to(device).eval()
+    mcts = MCTS(env, net, MCTSConfig(num_simulations=args.sims, dirichlet_eps=0.0))
+
+    def choose(game) -> Play:
+        s = env.reset().replace(
+            board=torch.as_tensor(game.state.board, dtype=torch.int8, device=device)[None],
+            side_to_play=torch.full(
+                (1,), int(game.state.side_to_play), dtype=torch.int32, device=device
+            ),
+        )
+        legal = env.legal_mask_many(s)
+        result = mcts.search(s, legal, add_noise=False)
+        action = int(result.action_probs[0].argmax())
+        src, dst = A.decode_to_tiles(env.n, action)
+        return Play.from_tiles(src, dst)
+
+    return choose
 
 
 def cmd_selfplay(args):
@@ -142,9 +238,23 @@ def cmd_ladder(args):
     print(json.dumps({"ratings": ratings}, indent=2))
 
 
+def cmd_bench(args):
+    """The headline benchmark (:mod:`.bench`): 11x11 Copenhagen at fixed
+    sizes whatever ``--preset`` says, as in the JAX CLI."""
+    from .bench import run_bench
+
+    print(json.dumps(run_bench(_device(args), args.seed)), flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="alphazeroforhnefatafl_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("play", help="interactive game (reference demo successor)")
+    _add_common(p)
+    p.add_argument("--ai", choices=["attacker", "defender"], default=None)
+    p.add_argument("--sims", type=int, default=64)
+    p.set_defaults(fn=cmd_play)
 
     p = sub.add_parser("selfplay", help="run self-play games")
     _add_common(p)
@@ -185,6 +295,10 @@ def main(argv=None):
     p.add_argument("--blocks", type=int, default=6)
     p.add_argument("--norm", default="group", choices=["group", "none"])
     p.set_defaults(fn=cmd_ladder)
+
+    p = sub.add_parser("bench", help="run the headline benchmark")
+    _add_common(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.fn(args)

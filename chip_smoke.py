@@ -9,8 +9,10 @@ Phases, in order; any failure exits non-zero:
 3. kernel 1 (legal mask) against its plain PyTorch version on the card,
    bit for bit: Copenhagen playout states and dense random boards at
    B=4096 and at B=64 (the arena's batch), playout states at B=512 and
-   B=1024 (the batches of a two- and a four-leaf wave of 256 games) and at
-   B=32 (half an arena batch, what a config match searches), every preset
+   B=1024 (the batches of a two- and a four-leaf wave of 256 games), at
+   B=2048 (the bench's two-leaf wave of 1024 games; its serial wave is
+   B=1024 and its four-leaf wave B=4096) and at B=32 (half an arena batch,
+   what a config match searches), every preset
    at B=256 (the self-play and learner batch), and 15x15 and 21x21 board
    batches; then
    the cases that a kernel serving a group of games per CTA makes risky:
@@ -20,8 +22,9 @@ Phases, in order; any failure exits non-zero:
    pieces, and constructed shieldwalls, enclosures, exit forts and king
    captures beside the throne (``tests/test_torch_cases.py``) on every
    preset and on 15x15, 19x19 and 21x21 boards;
-4. kernel 2 (env step) against its plain version on the same inputs, field
-   for field over every output, the 24 scalar rows included; then the time
+4. kernel 2 (env step) against its plain version on the same inputs (the
+   bench's B=2048 wave among them), field for field over every output, the
+   24 scalar rows included; then the time
    of each kernel beside its plain version at the self-play shapes, with
    the least time the card could take for the same bytes (each input read
    once, each output written once, at 3.35 TB/s) and the share of that
@@ -73,21 +76,39 @@ Phases, in order; any failure exits non-zero:
    launches kernel 1 twice at B=32 and kernel 2 ``64 + 32 + 1`` times), and
    a ``ladder`` over the net and the ``uniform`` and ``random`` anchors (16
    games a pair, 32 simulations, 16 plies: three matches, a ply launches
-   kernel 1 once and kernel 2 33 times; finite ratings, the first 0).
+   kernel 1 once and kernel 2 33 times; finite ratings, the first 0);
+12. the bench through its entry point, in process: ``bench.run_bench`` on
+   the card (4096 games, rollouts of 32 steps, 8 timed windows of 8
+   rollouts after a warm one; then MCTS at B=1024: 128 simulations at two
+   leaves a wave, 800 at four, 128 serial). The launches are exact: the
+   rollouts launch kernel 1 twice (the first mask and the fresh games'
+   mask) and kernel 2 ``32 x (1 + 8 x 8)`` times; the searches kernel 1
+   once a configuration and kernel 2 ``(sims / L) x (1 + timed searches)``
+   times each. The mask the last rollout carries equals kernel 1's (and
+   the plain version's) mask of the state it carries, bit for bit; the
+   bench line has every key, every rate above 0, and is printed on a line
+   of its own;
+13. ``cli play --ai attacker`` on the card (Brandubh, 64 simulations): the
+   AI opens, one scripted human move, the AI's reply, ``quit``; both AI
+   moves are legal under the port's oracle, and each launched kernel 1
+   once and kernel 2 64 times.
 
-The launch counters are set to 0 before each of the phases 5 and 7 to 11
+The launch counters are set to 0 before each of the phases 5 and 7 to 13
 and read after it. The second-to-last line is ``{"kernels": [...]}``, whose
 ``launches`` sum those phases and whose ``launches_by_path`` split them
 into self-play, learner, arena, multi-leaf self-play, Gumbel self-play,
-config match and ladder; the last line is
-``{"ok": true, "device": {...}}``. Run it from the repository root::
+config match, ladder, the bench's rollouts and searches, and play; the last
+line is ``{"ok": true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -107,13 +128,12 @@ def fail(msg: str) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if out.returncode != 0:
-        fail(f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+    from alphazeroforhnefatafl_tpu_torch.bench import card_line as query
+
+    try:
+        return query()
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"nvidia-smi failed: {e}")
 
 
 def dense_boards(rng: np.random.RandomState, n: int, count: int) -> np.ndarray:
@@ -222,9 +242,11 @@ def phase_kernels(device, checker):
     # The arena's shape: 64 games of at most 16 plies.
     playout_states(cph, 64, 16, gen, checker, "copenhagen B=64 playout")
     dense_case(cph, 64, "copenhagen B=64 dense")
-    # A wave of two and of four leaves for each of 256 games, and half an
-    # arena batch (a config match searches each half on its own).
-    for B, plies in ((512, 12), (1024, 12), (32, 16)):
+    # A wave of two and of four leaves for each of 256 games, the bench's
+    # two-leaf wave of 1024 games (B=2048; its serial wave is B=1024, its
+    # four-leaf wave B=4096), and half an arena batch (a config match
+    # searches each half on its own).
+    for B, plies in ((512, 12), (1024, 12), (2048, 12), (32, 16)):
         playout_states(cph, B, plies, gen, checker, f"copenhagen B={B} playout")
         dense_case(cph, B, f"copenhagen B={B} dense")
     for preset in PRESETS:
@@ -405,19 +427,6 @@ def phase_net_check(device):
     print("net: float32 forward on the card matches the CPU within 1e-4", flush=True)
 
 
-def smoke_net(device):
-    """The full-width net of the self-play phases: 64 channels, 6 GroupNorm
-    blocks, bf16 trunk, random weights from the seed."""
-    import torch
-
-    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
-    from alphazeroforhnefatafl_tpu_torch.models.network import init_params, make_network
-
-    n = make_env("copenhagen", device).n
-    net = make_network(n, channels=64, blocks=6, norm="group", dtype=torch.bfloat16)
-    return init_params(net, torch.Generator().manual_seed(SEED)).to(device).eval()
-
-
 def phase_selfplay(device, card, mcts_cfg, moves, label):
     """256 Copenhagen games of ``moves`` moves in a batch of 256 under
     ``mcts_cfg``. Returns the launches, the replay, the moves per second,
@@ -425,12 +434,13 @@ def phase_selfplay(device, card, mcts_cfg, moves, label):
     the tree traversals."""
     import torch
 
+    from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
     from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPlayConfig
 
     env = make_env("copenhagen", device)
-    net = smoke_net(device)
+    net = flagship_net(env.n, device, SEED)
     sp_cfg = SelfPlayConfig(batch_size=256, max_game_len=moves)
     actor = SelfPlayActor(env, net, mcts_cfg, sp_cfg, device=device)
     replay = ReplayBuffer(env, sp_cfg.batch_size * sp_cfg.max_game_len * 2, sp_cfg.policy_k)
@@ -608,11 +618,13 @@ def phase_learner_check(device, replay):
           f"from kernel 1 equals the plain version's on 256 positions", flush=True)
 
 
-def profile_steps(one_step, steps=5):
+def profile_steps(one_step, steps=5, what="learner steps"):
     """``torch.profiler`` over ``steps`` calls of ``one_step``: a line with the
     card's busy milliseconds and kernel launches per step, the window's own
     wall time per step (the profiler slows the host, so this is not the time
-    of a step without it) and the kernels that hold most of the busy time."""
+    of a step without it) and the kernels that hold most of the busy time;
+    and the busy milliseconds per step (None when the profiler saw no event
+    on the card)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -628,17 +640,17 @@ def profile_steps(one_step, steps=5):
     on_card = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     if not on_card:
-        return "profile: the profiler recorded no event on the card (not measured)"
+        return "profile: the profiler recorded no event on the card (not measured)", None
     by_name = {}
     for e in on_card:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return (f"profile of {steps} learner steps: the card is busy {busy_ms:.3f} ms of the "
+    return (f"profile of {steps} {what}: the card is busy {busy_ms:.3f} ms of the "
             f"{wall_ms:.3f} ms a step takes under the profiler "
             f"({100 * (1 - busy_ms / wall_ms):.1f}% idle in that window); "
             f"{len(on_card) / steps:.0f} kernels and copies a step; most time in "
-            + "; ".join(f"{name[:60]} {ms / steps:.3f} ms" for name, ms in top))
+            + "; ".join(f"{name[:60]} {ms / steps:.3f} ms" for name, ms in top)), busy_ms
 
 
 def phase_training(device, card, replay, steps=30, batch_size=256):
@@ -732,7 +744,7 @@ def phase_training(device, card, replay, steps=30, batch_size=256):
           flush=True)
     # After the counts are read: five more steps, unsynchronized inside, as
     # the loop takes them.
-    print(f"training on {card}: {profile_steps(one_step)}", flush=True)
+    print(f"training on {card}: {profile_steps(one_step)[0]}", flush=True)
     return launches
 
 
@@ -889,12 +901,13 @@ def phase_interleaved(device, card, rounds=6):
     each search."""
     import torch
 
+    from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
     from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPlayConfig
 
     env = make_env("copenhagen", device)
-    net = smoke_net(device)
+    net = flagship_net(env.n, device, SEED)
     B = 256
     configs = {"serial": MCTSConfig(), "L=2": MCTSConfig(leaves_per_wave=2),
                "L=4": MCTSConfig(leaves_per_wave=4)}
@@ -941,12 +954,13 @@ def phase_config_match(device, card):
     serial one with one net, 64 games of 16 plies at 64 simulations."""
     import torch
 
+    from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
     from alphazeroforhnefatafl_tpu_torch.train.arena import play_config_match
 
     env = make_env("copenhagen", device)
-    net = smoke_net(device)
+    net = flagship_net(env.n, device, SEED)
     sims, games, plies = 64, 64, 16
     serial = MCTSConfig(num_simulations=sims, dirichlet_eps=0.0)
     two_leaf = MCTSConfig(num_simulations=sims, dirichlet_eps=0.0, leaves_per_wave=2)
@@ -980,13 +994,14 @@ def phase_ladder(device, card):
     anchors: three matches of 16 games, 32 simulations, 16 plies."""
     import torch
 
+    from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
     from alphazeroforhnefatafl_tpu_torch.core.env import make_env
     from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
     from alphazeroforhnefatafl_tpu_torch.train import arena
     from alphazeroforhnefatafl_tpu_torch.train.anchors import ANCHOR_CODES, make_anchored_evaluate
 
     env = make_env("copenhagen", device)
-    entries = [("net", smoke_net(device))] + [
+    entries = [("net", flagship_net(env.n, device, SEED))] + [
         (name, make_anchored_evaluate(env, ANCHOR_CODES[name])) for name in ("uniform", "random")]
     sims, games, plies = 32, 16, 16
     matches = []
@@ -1033,6 +1048,163 @@ def phase_ladder(device, card):
           f"{ {k: round(v, 1) for k, v in ratings.items()} }; results "
           f"{[(r.candidate_wins, r.incumbent_wins, r.draws, r.truncated) for r in matches]}; "
           f"launches {launches}", flush=True)
+    return launches
+
+
+#: Keys of the bench line: the JAX bench's accelerator line and the port's.
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "mean_value", "timing",
+    "env_state_bytes_per_game", "mcts_sims_per_s", "mcts_sims_per_s_mean", "mcts_config",
+    "mcts_sims_per_s_800", "mcts_sims_per_s_800_mean", "mcts_config_800",
+    "net_flops_per_eval", "mfu_128", "mfu_800", "chip_peak_tflops_bf16",
+    "card", "power_limit_w", "mcts_sims_per_s_serial", "mcts_sims_per_s_serial_mean",
+    "mcts_config_serial", "device",
+)
+BENCH_RATES = (
+    "value", "mean_value", "mcts_sims_per_s", "mcts_sims_per_s_mean", "mcts_sims_per_s_800",
+    "mcts_sims_per_s_800_mean", "mcts_sims_per_s_serial", "mcts_sims_per_s_serial_mean",
+    "mfu_128", "mfu_800",
+)
+
+
+def phase_bench(device, card):
+    """``run_bench`` on the card, in process. The rollouts are recorded as
+    they return (the state and mask each carries) and the searches' launches
+    counted around ``bench_mcts_sims``; the rollouts' launches are the rest."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch import bench
+    from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import legal_mask_plain
+
+    batch, chunk, windows, pipeline = 4096, 32, 8, 8
+    # (sims, leaves, timed searches) of the three configurations.
+    searches = ((128, 2, 3), (800, 4, 2), (128, 1, 3))
+    carried = {"rollouts": 0}
+    mcts = {}
+    unrecorded_make_rollout, uncounted_mcts = bench.make_rollout, bench.bench_mcts_sims
+
+    def recorded_make_rollout(env, b, c):
+        rollout = unrecorded_make_rollout(env, b, c)
+
+        def recorded(*args, **kw):
+            state, mask, checksum = rollout(*args, **kw)
+            carried.update(env=env, state=state, mask=mask, rollouts=carried["rollouts"] + 1)
+            return state, mask, checksum
+
+        return recorded
+
+    def counted_mcts(*args, **kw):
+        before = read_launches()
+        out = uncounted_mcts(*args, **kw)
+        mcts.update({k: v - before[k] for k, v in read_launches().items()})
+        return out
+
+    bench.make_rollout, bench.bench_mcts_sims = recorded_make_rollout, counted_mcts
+    zero_launches()
+    try:
+        t0 = time.perf_counter()
+        rec = bench.run_bench(device, SEED)
+        seconds = time.perf_counter() - t0
+    finally:
+        bench.make_rollout, bench.bench_mcts_sims = unrecorded_make_rollout, uncounted_mcts
+    total = read_launches()
+    rollout_launches = {k: total[k] - mcts[k] for k in total}
+
+    want_rollout = {"legal_mask": 2, "step": chunk * (1 + windows * pipeline)}
+    want_mcts = {"legal_mask": len(searches),
+                 "step": sum(sims // L * (1 + timed) for sims, L, timed in searches)}
+    if carried["rollouts"] != 1 + windows * pipeline or rollout_launches != want_rollout:
+        fail(f"the bench made {carried['rollouts']} rollouts launching {rollout_launches}, not "
+             f"{1 + windows * pipeline} launching {want_rollout}")
+    if mcts != want_mcts:
+        fail(f"the bench's searches launched {mcts}, not {want_mcts}")
+    # After the counts are read: the carried mask against kernel 1 and its
+    # plain version on the carried state.
+    env, state, mask = carried["env"], carried["state"], carried["mask"]
+    if state.batch_size != batch or bool(state.terminated.any()):
+        fail("the last rollout carries a terminated game or a batch of another size")
+    if not torch.equal(mask, env.legal_mask_many(state)):
+        fail("the mask the rollout carries differs from kernel 1's mask of its state")
+    if not torch.equal(mask, legal_mask_plain(env, state.board, state.side_to_play)):
+        fail("the mask the rollout carries differs from the plain version's mask of its state")
+
+    # What a rollout costs: per call, as the host pays it, and the card's
+    # busy time in it (a profiler window: a rollout's launches outnumber
+    # what a held stream can queue, so the events cannot time the card alone).
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    rollout = unrecorded_make_rollout(env, batch, chunk)
+    call_ms = time_ms(lambda: rollout(state, mask, gen), reps=4)
+    profile, card_ms = profile_steps(lambda: rollout(state, mask, gen), steps=2,
+                                     what=f"rollouts of {chunk} steps of B={batch}")
+    busy = ("not measured" if card_ms is None
+            else f"{card_ms:.3f} ms of it ({100 * (1 - card_ms / call_ms):.1f}% idle)")
+    # utils/profiling's trace of one rollout: the card's kernels and the
+    # rollout's own annotation are in it.
+    from alphazeroforhnefatafl_tpu_torch.utils.profiling import device_trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with device_trace(tmp):
+            rollout(state, mask, gen)
+            torch.cuda.synchronize()
+        traces = list(Path(tmp).glob("*.pt.trace.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    traced_kernels = sum(e.get("cat") == "kernel" for e in events)
+    if not traced_kernels or not any(e.get("name") == "bench/rollout" for e in events):
+        fail(f"device_trace wrote {len(traces)} traces with {traced_kernels} kernels on the card "
+             "and no bench/rollout region")
+
+    missing = [k for k in BENCH_KEYS if k not in rec]
+    if missing:
+        fail(f"the bench line lacks {missing}")
+    bad = [k for k in BENCH_RATES if not (isinstance(rec[k], float) and rec[k] > 0)]
+    if bad:
+        fail(f"the bench line's {bad} are not positive: {[rec[k] for k in bad]}")
+    if f"{rec['card']}, {rec['power_limit_w']:.2f} W" != card or rec["device"] != torch.cuda.get_device_name(device):
+        fail(f"the bench line names {rec['card']!r}, {rec['power_limit_w']!r}, {rec['device']!r}; "
+             f"nvidia-smi says {card!r}")
+    print(json.dumps(rec), flush=True)
+    print(f"bench on {card}: {seconds:.1f} s; {rec['value']} env steps/s (mean {rec['mean_value']}); "
+          f"sims/s L=2 {rec['mcts_sims_per_s']}, 800 at L=4 {rec['mcts_sims_per_s_800']}, serial "
+          f"{rec['mcts_sims_per_s_serial']}; the carried mask equals kernel 1's and the plain "
+          f"version's on {batch} games; launches rollout {rollout_launches}, mcts {mcts}; a rollout "
+          f"takes {call_ms:.3f} ms a call unprofiled, the card busy {busy}; device_trace of a "
+          f"rollout holds {traced_kernels} kernels on the card and its region", flush=True)
+    print(f"bench on {card}: {profile}", flush=True)
+    return {"rollout": rollout_launches, "mcts": mcts}
+
+
+def phase_play(device, card, sims=64):
+    """``cli play --ai attacker`` through the CLI's entry point on the card:
+    the AI opens, the scripted human plays ``c4-c5`` (no attacker move can
+    block or capture it), the AI replies, then ``quit``."""
+    from alphazeroforhnefatafl_tpu_torch import cli
+    from alphazeroforhnefatafl_tpu_torch.core.oracle import Game, Play
+    from alphazeroforhnefatafl_tpu_torch.core.rules import PRESETS
+
+    out, stdin = io.StringIO(), sys.stdin
+    zero_launches()
+    sys.stdin = io.StringIO("c4-c5\nquit\n")
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(["play", "--preset", "brandubh", "--ai", "attacker", "--sims", str(sims)])
+    finally:
+        sys.stdin = stdin
+    launches = read_launches()
+    text = out.getvalue()
+    ai = re.findall(r"^AI plays (\S+)$", text, flags=re.M)
+    if len(ai) != 2 or "Invalid move" in text:
+        fail(f"cli play --ai: AI moves {ai}; transcript:\n{text}")
+    game = Game(*PRESETS["brandubh"])
+    for play in (ai[0], "c4-c5", ai[1]):
+        reason = game.logic.validate_play(Play.from_str(play), game.state)
+        if reason is not None:
+            fail(f"cli play --ai: {play} is illegal ({reason.name})")
+        game.do_play(Play.from_str(play))
+    want = {"legal_mask": 2, "step": 2 * sims}
+    if launches != want:
+        fail(f"cli play --ai launched {launches}, not {want}")
+    print(f"play on {card}: cli play --ai attacker, AI plays {ai[0]}, human c4-c5, AI plays "
+          f"{ai[1]}, both legal under the oracle; launches {launches}", flush=True)
     return launches
 
 
@@ -1101,6 +1273,10 @@ def main() -> int:
     gumbel = phase_selfplay(device, card, MCTSConfig(root_selection="gumbel"), 4, "gumbel")
     config_match_launches = phase_config_match(device, card)
     ladder_launches = phase_ladder(device, card)
+
+    # Phases 12 and 13: the bench and cli play through their entry points.
+    bench_launches = phase_bench(device, card)
+    play_launches = phase_play(device, card)
     by_path = {
         name: {
             "selfplay": serial["launches"][name] + serial_again["launches"][name]
@@ -1112,6 +1288,9 @@ def main() -> int:
             "selfplay_gumbel": gumbel["launches"][name],
             "config_match": config_match_launches[name],
             "ladder": ladder_launches[name],
+            "bench_rollout": bench_launches["rollout"][name],
+            "bench_mcts": bench_launches["mcts"][name],
+            "play": play_launches[name],
         }
         for name in ("legal_mask", "step")
     }

@@ -22,6 +22,7 @@ from alphazeroforhnefatafl_tpu.core.rules import COPENHAGEN, PRESETS, WinReason
 from alphazeroforhnefatafl_tpu_torch.core import env as tenv
 from alphazeroforhnefatafl_tpu_torch.core import rules as trules
 from tests.test_env_golden import random_dense_board
+from tests.test_torch_learner import single_thread  # noqa: F401 (autouse fixture)
 
 STATE_FIELDS = [
     "board", "side_to_play", "reps", "mid_pair", "recent_plays", "rep_first_i",

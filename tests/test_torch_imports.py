@@ -3,6 +3,7 @@ imports jax, flax, optax, orbax or the JAX package, and its entry points live on
 CUDA card unless the caller asks for the CPU."""
 
 import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -47,7 +48,12 @@ def test_the_walk_sees_the_whole_port():
                  "alphazeroforhnefatafl_tpu_torch/train/anchors.py",
                  "alphazeroforhnefatafl_tpu_torch/train/checkpoint.py",
                  "alphazeroforhnefatafl_tpu_torch/train/loop.py",
-                 "alphazeroforhnefatafl_tpu_torch/utils/metrics.py"):
+                 "alphazeroforhnefatafl_tpu_torch/utils/metrics.py",
+                 "alphazeroforhnefatafl_tpu_torch/bench.py",
+                 "alphazeroforhnefatafl_tpu_torch/utils/profiling.py",
+                 "alphazeroforhnefatafl_tpu_torch/core/oracle.py",
+                 "alphazeroforhnefatafl_tpu_torch/native/__init__.py",
+                 "alphazeroforhnefatafl_tpu_torch/compat/reference_io.py"):
         assert must in names
     # The walk does tell a forbidden import when it sees one.
     sample = ROOT / "tests" / "test_torch_env.py"
@@ -80,8 +86,14 @@ def test_port_imports_with_the_jax_names_blocked():
         "    cli.main(['train', '--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
+        "for cmd in ('ladder', 'bench', 'play'):\n"
+        "    try:\n"
+        "        cli.main([cmd, '--help'])\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0\n"
+        "from alphazeroforhnefatafl_tpu_torch import bench\n"
         "try:\n"
-        "    cli.main(['ladder', '--help'])\n"
+        "    bench.main(['--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
     )
@@ -109,3 +121,19 @@ def test_train_state_defaults_to_the_card_and_raises_without_one(monkeypatch):
         init_train_state(net, torch.Generator().manual_seed(0))
     state = init_train_state(net, torch.Generator().manual_seed(0), "cpu")
     assert all(p.device.type == "cpu" for p in state.net.parameters())
+
+
+@pytest.mark.parametrize(
+    "entry, argv",
+    [("cli", ["bench"]), ("cli", ["bench", "--device", "cuda"]),
+     ("cli", ["play", "--ai", "attacker"]), ("bench", [])],
+    ids=["bench", "bench-device-cuda", "play-ai", "bench-module"],
+)
+def test_cli_bench_and_play_ai_raise_without_a_card(monkeypatch, entry, argv):
+    """``bench`` (also as ``python -m ...bench``) and ``play --ai`` run on the
+    card unless ``--cpu`` is given: without CUDA they exit with an error
+    before measuring or searching."""
+    module = importlib.import_module(f"alphazeroforhnefatafl_tpu_torch.{entry}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        module.main(argv)

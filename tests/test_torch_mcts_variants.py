@@ -34,6 +34,7 @@ from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPl
 from tests.test_mcts import make_fake_evaluate
 from tests.test_torch_env import to_jax
 from tests.test_torch_mcts import playout_positions, torch_fake_evaluate
+from tests.test_torch_learner import single_thread  # noqa: F401 (autouse fixture)
 
 CFG = dict(num_simulations=32, max_children=32, cpuct=1.5, dirichlet_eps=0.0, max_depth=16)
 

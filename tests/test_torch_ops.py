@@ -11,6 +11,7 @@ import torch
 
 from alphazeroforhnefatafl_tpu_torch.core.env import make_env
 from alphazeroforhnefatafl_tpu_torch.ops import _build, legal_mask, step_kernel
+from tests.test_torch_learner import single_thread  # noqa: F401 (autouse fixture)
 
 HEADER = Path(_build.CSRC_DIR, "tafl_common.cuh").read_text()
 
