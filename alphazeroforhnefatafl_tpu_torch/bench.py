@@ -80,9 +80,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def time_searches(env, net, cfg: MCTSConfig, batch: int, iters: int):
+    """``(warm seconds, [seconds of each timed search])``: batched searches
+    under ``cfg`` of ``batch`` games from the start position, no root noise,
+    each ended by a copy of a checksum to the host. The warm search pays for
+    cuDNN's algorithm choice and the allocator's growth."""
+    mcts = MCTS(env, net, cfg)
+    state = env.reset_batch(batch)
+    legal = env.legal_mask_many(state)
+    region = f"bench/mcts_b{batch}_s{cfg.num_simulations}_L{cfg.leaves_per_wave}"
+
+    def run():
+        with annotate(region):
+            res = mcts.search(state, legal, add_noise=False)
+            return float(res.root_visits.sum() + res.action_probs.sum())
+
+    t0 = time.perf_counter()
+    run()
+    warm = time.perf_counter() - t0
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    return warm, times
+
+
 def bench_mcts_sims(device, seed: int = 0) -> dict:
     """MCTS sims/s with the flagship net: best and mean over timed searches
-    after one warm search, each ended by a copy of a checksum to the host.
+    after one warm search (:func:`time_searches`).
 
     On the card, three configurations at B=1024 (the JAX bench's two tuned
     ones and the serial search); on the CPU one small serial configuration.
@@ -95,28 +121,11 @@ def bench_mcts_sims(device, seed: int = 0) -> dict:
     net = flagship_net(env.n, device, seed)
 
     def one(batch, sims, children, iters, leaves=1, recall=0.99):
-        mcts = MCTS(
-            env,
-            net,
-            MCTSConfig(
-                num_simulations=sims, max_children=children, dirichlet_eps=0.0,
-                leaves_per_wave=leaves, topk_recall=recall,
-            ),
+        cfg = MCTSConfig(
+            num_simulations=sims, max_children=children, dirichlet_eps=0.0,
+            leaves_per_wave=leaves, topk_recall=recall,
         )
-        state = env.reset_batch(batch)
-        legal = env.legal_mask_many(state)
-
-        def run():
-            with annotate(f"bench/mcts_b{batch}_s{sims}_L{leaves}"):
-                res = mcts.search(state, legal, add_noise=False)
-                return float(res.root_visits.sum() + res.action_probs.sum())
-
-        run()  # warm: cuDNN's algorithm choice, the allocator's growth
-        times = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            run()
-            times.append(time.perf_counter() - t0)
+        _, times = time_searches(env, net, cfg, batch, iters)
         return (
             round(batch * sims / min(times), 1),
             round(batch * sims * len(times) / sum(times), 1),

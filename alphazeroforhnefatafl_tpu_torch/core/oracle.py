@@ -836,10 +836,12 @@ class Game:
         self.logic = GameLogic(rules, board.shape[0])
         self.state = GameState(board=board, side_to_play=rules.starting_side)
         self.play_history: List[PlayRecord] = []
-        # Starts EMPTY, exactly like ``Game::new`` (``game/game/mod.rs:86-91``);
-        # ``do_play`` pushes the pre-play state. Seeding the initial state here
-        # (the pre-round-5 behavior) made a zero-play undo pop a duplicate
-        # entry instead of being the reference's silent no-op (VERDICT r4 #7).
+        # Starts empty, where the reference's ``Game::new`` seeds it with the
+        # initial state (``game/game/mod.rs:90``) and its first ``do_play``
+        # pushes that state again. ``do_play`` here pushes the pre-play state,
+        # so this history holds one entry fewer, but the undo observables are
+        # the same: the state, the play history, and an undo with no play
+        # left being a silent no-op.
         self.state_history: List[GameState] = []
 
     def do_play(self, play: Play) -> Optional[Outcome]:

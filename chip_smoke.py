@@ -51,7 +51,7 @@ Phases, in order; any failure exits non-zero:
    and from a ``torch.profiler`` window over five more steps the card's
    busy time, the window's wall time and the launches per step;
 8. the loop through its entry point: ``run_loop`` for two gated iterations
-   (256 self-play games, 20 learner steps, a 64-game arena of 64
+   (256 self-play games, 20 learner steps, a 64-game arena of 8 plies at 64
    simulations a move, a checkpoint each), then a second call that must
    resume at iteration 2 from the checkpoint. The launches are counted
    where they are made: around every arena match (kernel 1 once and kernel
@@ -59,12 +59,12 @@ Phases, in order; any failure exits non-zero:
    once); the rest is self-play's;
 9. multi-leaf self-play at full width: phase 5 again with
    ``MCTSConfig(leaves_per_wave=2)`` and with ``leaves_per_wave=4``, then
-   the serial search once more: 8 moves each, 128 root visits for every
+   the serial search once more: 4 moves each, 128 root visits for every
    game, kernel 1 once a move and kernel 2 exactly ``128 / L + 1`` times a
    move, at a batch of ``256 * L``. One line sets the moves per second,
    the seconds a move and the host seconds inside the tree traversals of
    the serial, two-leaf and four-leaf searches side by side. Then the
-   three move in turns, one batched move each for six rounds after a warm
+   three move in turns, one batched move each for three rounds after a warm
    one, and their median seconds a move are set side by side: a host that
    slows down through a run slows all three alike there;
 10. Gumbel self-play at full width: ``root_selection="gumbel"``, 128
@@ -72,10 +72,10 @@ Phases, in order; any failure exits non-zero:
    ``action_probs`` sums to 1 with no mass on an illegal action, 129
    launches of kernel 2 a move;
 11. what judges a run: ``play_config_match`` of the two-leaf search against
-   the serial one with one net (64 games, 64 simulations, 16 plies: a ply
+   the serial one with one net (64 games, 64 simulations, 4 plies: a ply
    launches kernel 1 twice at B=32 and kernel 2 ``64 + 32 + 1`` times), and
    a ``ladder`` over the net and the ``uniform`` and ``random`` anchors (16
-   games a pair, 32 simulations, 16 plies: three matches, a ply launches
+   games a pair, 32 simulations, 4 plies: three matches, a ply launches
    kernel 1 once and kernel 2 33 times; finite ratings, the first 0);
 12. the bench through its entry point, in process: ``bench.run_bench`` on
    the card (4096 games, rollouts of 32 steps, 8 timed windows of 8
@@ -91,13 +91,39 @@ Phases, in order; any failure exits non-zero:
 13. ``cli play --ai attacker`` on the card (Brandubh, 64 simulations): the
    AI opens, one scripted human move, the AI's reply, ``quit``; both AI
    moves are legal under the port's oracle, and each launched kernel 1
-   once and kernel 2 64 times.
+   once and kernel 2 64 times;
+14. seeded determinism at full width: 256 Copenhagen games with the
+   flagship net, root noise and temperature sampling on, under the flagship
+   run's search (128 simulations, 32 children, recall 0.9, alpha 10 / legal
+   moves) at two leaves a wave for 8 moves, then serial for 4. Each runs
+   with seed 0 twice and seed 1 once: the two runs of seed 0 must give
+   bit-identical replay arrays and equal stats, seed 1 other boards;
+15. ``scripts.profile_wave`` then ``scripts.analyze_trace`` through their
+   ``main(argv)``: one serial search of 1024 games, 800 simulations, 128
+   children, traced with ``torch.profiler``. The trace must hold exactly
+   one step-kernel event a wave; one line ``{"profile_wave": {...}}`` gives
+   the search's seconds, the card's time by op family, its busy share of
+   the search's host window (the union of the device events), and the
+   trace's size and export seconds;
+16. the run drivers through their ``main(argv)`` in a temporary working
+   directory: ``train_run`` with the flags of the flagship run's last
+   record (64x6 net, 512 games a batch, L=2, recall 0.9, resignation, a
+   Wilson gate, a 64-game arena, ``--search-chunk 32``, whose notice must
+   print) cut in depth only (2 iterations, games and arena games of 12
+   plies, 10 learner steps, a checkpoint each, a 16,384-position ring);
+   ``summarize_run`` on its log; ``eval_run`` over its checkpoints with
+   three anchors, whose ``iter`` entries must hold their own checkpoints'
+   parameters; ``cross_ladder`` with ``latest`` and ``mid`` entries (both
+   2 games a pair, 16 simulations, 6 plies); ``search_ab`` (L=2, recall 0.9
+   against serial, 64 games, 128 simulations, 6 plies); ``bench_mcts`` at
+   B=1024 (128 simulations, L=2, exactly one mask and 192 step launches).
 
-The launch counters are set to 0 before each of the phases 5 and 7 to 13
-and read after it. The second-to-last line is ``{"kernels": [...]}``, whose
-``launches`` sum those phases and whose ``launches_by_path`` split them
-into self-play, learner, arena, multi-leaf self-play, Gumbel self-play,
-config match, ladder, the bench's rollouts and searches, and play; the last
+The launch counters are set to 0 before each of the phases 5 and 7 to 16
+(and each driver of phase 16) and read after it. The second-to-last line is
+``{"kernels": [...]}``, whose ``launches`` sum those phases and whose
+``launches_by_path`` split them into self-play, learner, arena, multi-leaf
+self-play, Gumbel self-play, config match, ladder, the bench's rollouts and
+searches, play, determinism, profile_wave and each run driver; the last
 line is ``{"ok": true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
@@ -239,7 +265,7 @@ def phase_kernels(device, checker):
     playout_states(cph, 4096, 24, gen, checker, "copenhagen B=4096 playout")
     for k in range(4):
         dense_case(cph, 4096, f"copenhagen B=4096 dense #{k}")
-    # The arena's shape: 64 games of at most 16 plies.
+    # The arena's batch: 64 games, 16 plies.
     playout_states(cph, 64, 16, gen, checker, "copenhagen B=64 playout")
     dense_case(cph, 64, "copenhagen B=64 dense")
     # A wave of two and of four leaves for each of 256 games, the bench's
@@ -808,7 +834,7 @@ def phase_loop(device, card):
         config = loop.LoopConfig(
             preset="copenhagen", channels=64, blocks=6, iterations=2, games_per_iteration=256,
             train_steps_per_iteration=20, train_batch_size=256, min_replay_size=512,
-            arena_games=64, arena_every=1, arena_sims=64, arena_max_game_len=16,
+            arena_games=64, arena_every=1, arena_sims=64, arena_max_game_len=8,
             gate_on="wilson", gate_threshold=0.5, checkpoint_dir=f"{tmp}/ckpt",
             mcts=MCTSConfig(num_simulations=64),
             selfplay=SelfPlayConfig(batch_size=256, max_game_len=8),
@@ -894,7 +920,7 @@ def phase_loop(device, card):
             "arena": {"legal_mask": arena["legal_mask"], "step": arena["step"]}}
 
 
-def phase_interleaved(device, card, rounds=6):
+def phase_interleaved(device, card, rounds=3):
     """The serial, two-leaf and four-leaf searches move in turns, one
     batched move of 256 games each, so that a host that speeds up or slows
     down through a run does so for all three alike. Returns the launches of
@@ -951,7 +977,7 @@ def phase_interleaved(device, card, rounds=6):
 
 def phase_config_match(device, card):
     """``play_config_match`` at full width: the two-leaf search against the
-    serial one with one net, 64 games of 16 plies at 64 simulations."""
+    serial one with one net, 64 games of 4 plies at 64 simulations."""
     import torch
 
     from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
@@ -961,7 +987,7 @@ def phase_config_match(device, card):
 
     env = make_env("copenhagen", device)
     net = flagship_net(env.n, device, SEED)
-    sims, games, plies = 64, 64, 16
+    sims, games, plies = 64, 64, 4
     serial = MCTSConfig(num_simulations=sims, dirichlet_eps=0.0)
     two_leaf = MCTSConfig(num_simulations=sims, dirichlet_eps=0.0, leaves_per_wave=2)
     zero_launches()
@@ -991,7 +1017,7 @@ def phase_config_match(device, card):
 
 def phase_ladder(device, card):
     """``ladder`` at full width over the random-weight net and two net-free
-    anchors: three matches of 16 games, 32 simulations, 16 plies."""
+    anchors: three matches of 16 games, 32 simulations, 4 plies."""
     import torch
 
     from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
@@ -1003,7 +1029,7 @@ def phase_ladder(device, card):
     env = make_env("copenhagen", device)
     entries = [("net", flagship_net(env.n, device, SEED))] + [
         (name, make_anchored_evaluate(env, ANCHOR_CODES[name])) for name in ("uniform", "random")]
-    sims, games, plies = 32, 16, 16
+    sims, games, plies = 32, 16, 4
     matches = []
     uncounted_match = arena.play_match
 
@@ -1208,6 +1234,277 @@ def phase_play(device, card, sims=64):
     return launches
 
 
+def flagship_search(leaves):
+    """The search of the flagship run's last records
+    (``runs/copenhagen_r4ab_puct/config.jsonl``) at ``leaves`` a wave: 128
+    simulations, 32 children, top-k recall 0.9, Dirichlet alpha 10 / legal
+    moves, root noise on."""
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+
+    return MCTSConfig(num_simulations=128, max_children=32, leaves_per_wave=leaves,
+                      topk_recall=0.9, dirichlet_alpha_scale=10.0)
+
+
+REPLAY_FIELDS = ("board", "side", "reps", "policy_idx", "policy_p", "value")
+
+
+def phase_determinism(device, card, runs=((2, 8), (1, 4))):
+    """Seeded determinism on the card at full width: 256 Copenhagen games
+    with the flagship net, root noise and temperature sampling on, under the
+    flagship search at two leaves a wave for 8 moves and serial for 4. Seed
+    0 twice and seed 1 once each: equal seeds give bit-identical replay
+    arrays and equal stats, seeds 0 and 1 different boards."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.bench import flagship_net
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
+    from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPlayConfig
+
+    env = make_env("copenhagen", device)
+    net = flagship_net(env.n, device, SEED)
+
+    def play(cfg, moves, seed):
+        sp_cfg = SelfPlayConfig(batch_size=256, max_game_len=moves)
+        actor = SelfPlayActor(env, net, cfg, sp_cfg, device=device)
+        replay = ReplayBuffer(env, sp_cfg.batch_size * moves, sp_cfg.policy_k)
+        stats = actor.play(replay, torch.Generator(device=device).manual_seed(seed), 256)
+        return replay, stats.as_dict()
+
+    zero_launches()
+    total = {"legal_mask": 0, "step": 0}
+    t0 = time.perf_counter()
+    for leaves, moves in runs:
+        cfg = flagship_search(leaves)
+        (a, sa), (b, sb), (c, _) = play(cfg, moves, 0), play(cfg, moves, 0), play(cfg, moves, 1)
+        label = f"determinism L={leaves}"
+        if sa != sb:
+            fail(f"{label}: seed 0 gave the stats {sa} and then {sb}")
+        if not (a.size == b.size == 256 * moves):
+            fail(f"{label}: replays of {a.size} and {b.size} positions, not {256 * moves}")
+        for field in REPLAY_FIELDS:
+            x, y = getattr(a, field), getattr(b, field)
+            if not np.array_equal(x, y):
+                rows = int((x != y).reshape(len(x), -1).any(1).sum())
+                fail(f"{label}: replay.{field} differs between two runs of seed 0 "
+                     f"({rows} positions of {a.size})")
+        if c.size == a.size and np.array_equal(a.board, c.board):
+            fail(f"{label}: seeds 0 and 1 played the same boards")
+        total["legal_mask"] += 3 * moves
+        total["step"] += 3 * moves * (cfg.num_simulations // leaves + 1)
+        print(f"determinism on {card}: {label}, 256 games, {moves} moves, root noise and "
+              f"temperature on: two runs of seed 0 equal in every replay field "
+              f"({', '.join(REPLAY_FIELDS)}) and stats; seed 1 plays other boards "
+              f"({int((a.board != c.board).reshape(a.size, -1).any(1).sum())} of {a.size} "
+              "positions differ)", flush=True)
+    launches = read_launches()
+    if launches != total:
+        fail(f"determinism runs launched {launches}, not {total}")
+    print(f"determinism on {card}: {time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
+def captured(fn, *args):
+    """``(return value, stdout, stderr)`` of ``fn(*args)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        value = fn(*args)
+    return value, out.getvalue(), err.getvalue()
+
+
+def phase_profile_wave(device, card, sims=800):
+    """``scripts.profile_wave`` then ``scripts.analyze_trace`` through their
+    ``main(argv)``: one search of 1024 games, ``sims`` simulations, 128
+    children, one leaf a wave, traced into a temporary directory. The trace
+    must hold exactly one step-kernel event a wave."""
+    from alphazeroforhnefatafl_tpu_torch.scripts import analyze_trace, profile_wave
+
+    analyses = []
+    unrecorded_analyze = analyze_trace.analyze
+
+    def recorded_analyze(*args, **kw):
+        analyses.append(unrecorded_analyze(*args, **kw))
+        return analyses[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_launches()
+        t0 = time.perf_counter()
+        rc, out, err = captured(profile_wave.main, ["--batch", "1024", "--sims", str(sims),
+                                                    "--children", "128", "--leaves", "1",
+                                                    "--trace-dir", tmp])
+        profile_s = time.perf_counter() - t0
+        launches = read_launches()
+        print(out + err, end="", flush=True)
+        rec = json.loads(out.splitlines()[-1])
+        analyze_trace.analyze = recorded_analyze
+        try:
+            t0 = time.perf_counter()
+            rc2, report, _ = captured(analyze_trace.main, [tmp, "--top", "25"])
+            analyze_s = time.perf_counter() - t0
+        finally:
+            analyze_trace.analyze = unrecorded_analyze
+    print(report, end="", flush=True)
+    if rc != 0 or rc2 != 0 or len(analyses) != 1:
+        fail(f"profile_wave returned {rc}, analyze_trace {rc2} after {len(analyses)} analyses")
+    s = analyses[0]
+    steps_traced = sum(n for name, n in s["op_counts"].items() if "tafl_step_kernel" in name)
+    want = {"legal_mask": 1, "step": 2 * sims}  # the root mask; a warm and a traced search
+    if launches != want:
+        fail(f"profile_wave launched {launches}, not {want}")
+    if steps_traced != sims:
+        fail(f"the trace holds {steps_traced} step-kernel events, not one a wave ({sims})")
+    if not s["device_events"] or s["busy_share"] is None or not 0 < s["busy_share"] <= 1:
+        fail(f"the trace holds {s['device_events']} device events, busy share {s['busy_share']}")
+    line = {
+        "sims": sims, "batch": 1024, "children": 128, "leaves": 1,
+        "search_s": rec["search_s"], "export_s": rec["export_s"], "trace_mb": rec["trace_mb"],
+        "profile_wave_s": round(profile_s, 3), "analyze_s": round(analyze_s, 3),
+        "device_events": s["device_events"], "device_total_ms": round(s["total_ms"], 3),
+        "window_ms": round(s["window_ms"], 3), "busy_ms": round(s["busy_ms"], 3),
+        "busy_share": round(s["busy_share"], 4),
+        "families_ms": {k: round(v, 3) for k, v in s["families"].items()},
+        "tafl_step_kernel_events": steps_traced,
+        "tracks": list(s["tracks"]),
+        "card": card,
+    }
+    print(json.dumps({"profile_wave": line}), flush=True)
+    return launches
+
+
+#: Depth cuts of the flagship record for phase 16 (its widths stay).
+RUN_CUTS = {"iterations": 2, "max_game_len": 12, "arena_max_len": 12, "arena_every": 1,
+            "train_steps": 10, "checkpoint_every": 1, "replay_capacity": 16384}
+
+
+def phase_run_drivers(device, card):
+    """The run drivers through their ``main(argv)`` in a temporary working
+    directory: ``train_run`` with the flagship record's flags cut in depth,
+    ``summarize_run``, ``eval_run`` (each checkpoint in a net of its own),
+    ``cross_ladder``, ``search_ab`` and ``bench_mcts``, with the launches of
+    each driver counted."""
+    import os
+
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.scripts import (
+        bench_mcts, cross_ladder, eval_run, search_ab, summarize_run, train_run)
+
+    root = Path(__file__).resolve().parent
+    rec = json.loads((root / "runs" / "copenhagen_r4ab_puct" / "config.jsonl")
+                     .read_text().splitlines()[-1])
+    rec.update(RUN_CUTS, name="smoke_r4ab", cpu=False)
+    launches, seconds, cwd = {}, {}, os.getcwd()
+
+    def drive(name, module, argv):
+        zero_launches()
+        t0 = time.perf_counter()
+        rc, out, err = captured(module.main, argv)
+        torch.cuda.synchronize()
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        launches[name] = read_launches()
+        if rc != 0:
+            fail(f"{name} returned {rc}; stderr:\n{err}")
+        return out, err
+
+    def captured_ladder(module):
+        seen = {}
+        real = module.ladder
+
+        def ladder(env, named, *args, **kw):
+            seen["named"] = list(named)
+            return real(env, named, *args, **kw)
+
+        module.ladder = ladder
+        return seen, real
+
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            out, err = drive("train_run", train_run, train_run.record_argv(rec))
+            if "--search-chunk 32 is ignored" not in err:
+                fail(f"train_run printed no notice for --search-chunk 32; stderr:\n{err}")
+            print(err + out, end="", flush=True)
+            run_dir = Path(tmp) / "runs" / "smoke_r4ab"
+            ckpt = run_dir / "ckpt"
+            steps = RUN_CUTS["iterations"] * RUN_CUTS["train_steps"]
+            rows = (run_dir / "metrics.jsonl").read_text().splitlines()
+            its = sorted(int(p.name[5:13]) for p in ckpt.glob("ckpt_*.pt"))
+            if out.splitlines()[-1] != f"done: step={steps}" or len(rows) != 2 or its != [0, 1]:
+                fail(f"train_run: {out.splitlines()[-1]!r}, {len(rows)} metrics rows, "
+                     f"checkpoints {its}")
+
+            out, _ = drive("summarize_run", summarize_run, [str(run_dir), "--every", "1"])
+            print(out, end="", flush=True)
+            if not out.startswith("2 iterations | "):
+                fail(f"summarize_run printed {out!r}")
+
+            match = ["--preset", "copenhagen", "--games", "2", "--sims", "16",
+                     "--max-game-len", "6"]
+            seen, real = captured_ladder(eval_run)
+            try:
+                out, err = drive("eval_run", eval_run, ["--ckpt", str(ckpt), *match,
+                                                        "--anchors", "uniform,material,random"])
+            finally:
+                eval_run.ladder = real
+            ratings = json.loads(out)["ratings"]
+            names = ["init", "iter000", "iter001", "anchor_uniform", "anchor_material",
+                     "anchor_random"]
+            if list(ratings) != names or ratings["anchor_uniform"] != 0.0 or \
+                    not np.isfinite(list(ratings.values())).all():
+                fail(f"eval_run rated {ratings}; stderr:\n{err}")
+            nets = dict(seen["named"])
+            params = {}
+            for it in (0, 1):
+                saved = torch.load(ckpt / f"ckpt_{it:08d}.pt", map_location="cpu",
+                                   weights_only=True)["train_state"]["net"]
+                params[it] = {k: v.cpu() for k, v in nets[f"iter{it:03d}"].state_dict().items()}
+                if params[it].keys() != saved.keys() or \
+                        not all(torch.equal(params[it][k], saved[k]) for k in saved):
+                    fail(f"eval_run's iter{it:03d} does not hold its checkpoint's parameters")
+            if all(torch.equal(params[0][k], params[1][k]) for k in params[0]):
+                fail("eval_run's iter000 and iter001 hold the same parameters")
+            print(f"eval_run: {json.dumps({k: round(v, 1) for k, v in ratings.items()})}; "
+                  "each iter entry holds its own checkpoint's parameters", flush=True)
+
+            seen, real = captured_ladder(cross_ladder)
+            try:
+                out, err = drive("cross_ladder", cross_ladder, [
+                    "--entry", f"latest={ckpt}:latest", "--entry", f"mid={ckpt}:mid", *match])
+            finally:
+                cross_ladder.ladder = real
+            res = json.loads(out)
+            if list(res["ratings"]) != ["init", "latest", "mid", "anchor_uniform",
+                                        "anchor_random"] or len(res["score_matrix"]) != 5:
+                fail(f"cross_ladder printed {out!r}")
+            print(f"cross_ladder: {out.strip()}", flush=True)
+
+            out, _ = drive("search_ab", search_ab, [
+                "--ckpt", str(ckpt), "--games", "64", "--sims", "128", "--max-game-len", "6",
+                "--a", "leaves=2,recall=0.9", "--b", "leaves=1,recall=0.99"])
+            res = json.loads(out)
+            if res["games"] != 64 or res["ckpt_step"] != 1:
+                fail(f"search_ab printed {out!r}")
+            print(f"search_ab: {out.strip()}", flush=True)
+
+            out, _ = drive("bench_mcts_script", bench_mcts, [
+                "--batch", "1024", "--sims", "128", "--children", "32", "--leaves", "2",
+                "--iters", "2"])
+            res = json.loads(out)
+            if res["metric"] != "mcts_sims_per_s_11x11_b1024_s128_k32_auto_u4_L2" or \
+                    not res["value"] > 0 or len(res["iter_ms"]) != 2:
+                fail(f"bench_mcts printed {out!r}")
+            print(f"bench_mcts: {out.strip()}", flush=True)
+        finally:
+            os.chdir(cwd)
+    if launches["bench_mcts_script"] != {"legal_mask": 1, "step": 3 * 64}:
+        fail(f"bench_mcts launched {launches['bench_mcts_script']}, not one mask and 192 steps")
+    del launches["summarize_run"]  # reads a log; launches nothing
+    print(f"run drivers on {card}: seconds {seconds}; launches {launches}; cuts of the "
+          f"flagship record {RUN_CUTS}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1257,11 +1554,12 @@ def main() -> int:
 
     # Phase 9: multi-leaf waves, then the serial search once more, so that
     # the three are read side by side within one run.
-    multi = {L: phase_selfplay(device, card, MCTSConfig(leaves_per_wave=L), 8, f"L={L}")
+    multi = {L: phase_selfplay(device, card, MCTSConfig(leaves_per_wave=L), 4, f"L={L}")
              for L in (2, 4)}
-    serial_again = phase_selfplay(device, card, MCTSConfig(), 8, "serial again")
-    print(f"selfplay on {card}, 256 games, 128 sims, 8 moves, moves/s (median seconds a move; of "
-          f"them inside the tree traversals): serial {serial['rate']:.1f} ({serial['move_s']:.4f}; "
+    serial_again = phase_selfplay(device, card, MCTSConfig(), 4, "serial again")
+    print(f"selfplay on {card}, 256 games, 128 sims, 8 moves serial and 4 the others, moves/s "
+          f"(median seconds a move; of them inside the tree traversals): serial "
+          f"{serial['rate']:.1f} ({serial['move_s']:.4f}; "
           f"{serial['traverse_s']:.4f}), "
           + ", ".join(f"L={L} {r['rate']:.1f} ({r['move_s']:.4f}; {r['traverse_s']:.4f})"
                       for L, r in multi.items())
@@ -1277,6 +1575,11 @@ def main() -> int:
     # Phases 12 and 13: the bench and cli play through their entry points.
     bench_launches = phase_bench(device, card)
     play_launches = phase_play(device, card)
+
+    # Phases 14-16: seeded determinism, the search's profile, the run drivers.
+    determinism_launches = phase_determinism(device, card)
+    profile_launches = phase_profile_wave(device, card)
+    driver_launches = phase_run_drivers(device, card)
     by_path = {
         name: {
             "selfplay": serial["launches"][name] + serial_again["launches"][name]
@@ -1291,6 +1594,9 @@ def main() -> int:
             "bench_rollout": bench_launches["rollout"][name],
             "bench_mcts": bench_launches["mcts"][name],
             "play": play_launches[name],
+            "determinism": determinism_launches[name],
+            "profile_wave": profile_launches[name],
+            **{driver: counts[name] for driver, counts in driver_launches.items()},
         }
         for name in ("legal_mask", "step")
     }
