@@ -327,6 +327,11 @@ class TaflEnv:
     # Observation
     # ------------------------------------------------------------------
 
+    @property
+    def num_observation_planes(self) -> int:
+        """Planes of :meth:`observe` (``models.network.OBS_PLANES``)."""
+        return 6
+
     def observe(self, states: EnvState) -> torch.Tensor:
         """Network input planes ``f32[B, N, N, 6]`` (NHWC, as core/env.py)."""
         b = states.board

@@ -95,7 +95,9 @@ def build() -> tuple[Path, float, str]:
         if failed is not None:
             code, cmd, err = failed
             raise KernelBuildError(f"nvcc failed ({code}): {' '.join(cmd)}\n{err}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        # Atomic: a concurrent loader never sees half a file, and ranks that
+        # build at once only waste an nvcc run.
+        os.replace(tmp, out)
     return out, time.perf_counter() - t0, log
 
 

@@ -168,10 +168,14 @@ def batched_legal_mask(env, boards: torch.Tensor, sides: torch.Tensor) -> torch.
     lib = _build.load_library()
     out = torch.empty((B, env.num_actions), dtype=torch.bool, device=boards.device)
     stream = torch.cuda.current_stream(boards.device).cuda_stream
-    rc = lib.tafl_legal_mask(
-        boards.data_ptr(), sides.data_ptr(), tab.data_ptr(), ctypes.addressof(params),
-        B, out.data_ptr(), stream,
-    )
+    # The ctypes call launches on the host thread's CURRENT device, on a
+    # stream of the tensor's: a rank on cuda:1 whose current device is 0
+    # would fail at launch, so enter the tensor's device around it.
+    with torch.cuda.device(boards.device):
+        rc = lib.tafl_legal_mask(
+            boards.data_ptr(), sides.data_ptr(), tab.data_ptr(), ctypes.addressof(params),
+            B, out.data_ptr(), stream,
+        )
     _build.check(rc, "tafl_legal_mask")
     batched_legal_mask.launches += 1
     return out

@@ -592,13 +592,17 @@ def step_arrays(env, boards, sides, actions, recent_plays, rep_first_i, reps,
     next_mask = torch.empty((B, env.num_actions), dtype=torch.bool, device=dev)
     scal = torch.empty((B, len(SCALAR_ROWS)), dtype=i32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.tafl_step(
-        boards.data_ptr(), sides.data_ptr(), actions.data_ptr(),
-        recent_plays.data_ptr(), rep_first_i.data_ptr(), reps.data_ptr(),
-        mid_pair.data_ptr(), psc.data_ptr(), tab.data_ptr(),
-        ctypes.addressof(params), B, board3.data_ptr(),
-        cap.data_ptr(), next_mask.data_ptr(), scal.data_ptr(), stream,
-    )
+    # The ctypes call launches on the host thread's CURRENT device, on a
+    # stream of the tensor's: a rank on cuda:1 whose current device is 0
+    # would fail at launch, so enter the tensor's device around it.
+    with torch.cuda.device(dev):
+        rc = lib.tafl_step(
+            boards.data_ptr(), sides.data_ptr(), actions.data_ptr(),
+            recent_plays.data_ptr(), rep_first_i.data_ptr(), reps.data_ptr(),
+            mid_pair.data_ptr(), psc.data_ptr(), tab.data_ptr(),
+            ctypes.addressof(params), B, board3.data_ptr(),
+            cap.data_ptr(), next_mask.data_ptr(), scal.data_ptr(), stream,
+        )
     _build.check(rc, "tafl_step")
     step_arrays.launches += 1
     return board3, cap, next_mask, scal

@@ -12,6 +12,9 @@ TPU mechanisms: accepted, ignored, and noted on stderr when non-zero::
     python -m alphazeroforhnefatafl_tpu_torch.scripts.train_run \\
         --name copenhagen_r4 --hours 6 --iterations 400 --games 256 \\
         --selfplay-batch 256 --sims 128 --arena-games 64 --gumbel
+
+Under ``torchrun --nproc-per-node N`` every rank runs the loop on its own
+card (``parallel/launch.py``); rank r > 0 logs to ``metrics.rank{r}.jsonl``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import time
 
 from ..cli import _device
 from ..core.env import make_env
+from ..parallel.launch import initialize_distributed, rank_log_path
 from ..search.mcts import MCTSConfig
 from ..train.loop import LoopConfig, run_loop
 from ..train.selfplay import SelfPlayConfig
@@ -159,19 +163,23 @@ def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     note_tpu_flags(p, args, "search_chunk", "scan_moves")
-    device = _device(args)
+    # One rank, unless started by torchrun (or inside a process group).
+    topo = initialize_distributed(device=_device(args))
 
     run_dir = os.path.join("runs", args.name)
     os.makedirs(run_dir, exist_ok=True)
     # One record appended per invocation (resumes included): the file is a
     # history, not a single JSON document.
-    with open(os.path.join(run_dir, "config.jsonl"), "a") as f:
-        f.write(json.dumps(vars(args)) + "\n")
+    if topo.process_id == 0:
+        with open(os.path.join(run_dir, "config.jsonl"), "a") as f:
+            f.write(json.dumps(vars(args)) + "\n")
 
-    env = make_env(args.preset, device)
+    env = make_env(args.preset, topo.device)
     cfg = loop_config(args, run_dir)
     deadline = time.time() + args.hours * 3600 if args.hours else None
-    log = MetricsLogger(jsonl_path=os.path.join(run_dir, "metrics.jsonl"))
+    log = MetricsLogger(
+        jsonl_path=rank_log_path(os.path.join(run_dir, "metrics.jsonl"), topo.process_id)
+    )
     try:
         state = run_loop(env, cfg, log=log, deadline=deadline)
     finally:

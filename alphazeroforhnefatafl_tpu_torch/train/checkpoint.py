@@ -8,6 +8,12 @@ buffer, the loop generator's state, the iteration and an ``extra`` dict (the
 gating incumbent) — so a restart resumes at the last iteration boundary.
 Every leaf is a tensor or a plain Python value, so the file loads with
 ``torch.load(weights_only=True)``.
+
+Across ranks (a manager given a process group) rank 0 writes that file
+without the replay, and every rank writes its own replay and self-play
+generator to a sidecar ``replay_host{rank}/{iteration}.pt`` beside it:
+replay buffers are rank-local, so one replay in the shared file would hand
+every rank rank 0's games on restore.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .learner import TrainState
 from .replay import ReplayBuffer
@@ -24,6 +31,7 @@ from .replay import ReplayBuffer
 _REPLAY_ARRAYS = ("board", "side", "reps", "policy_idx", "policy_p", "value")
 _REPLAY_COUNTERS = ("write", "size", "total_added")
 _FILE = re.compile(r"^ckpt_(\d+)\.pt$")
+_SIDECAR = re.compile(r"^(\d+)\.pt$")
 
 
 def _replay_state(replay: ReplayBuffer) -> Dict[str, Any]:
@@ -76,16 +84,33 @@ def _check_architecture(where: str, net: torch.nn.Module, saved: Dict[str, torch
         )
 
 
-class CheckpointManager:
-    """Iteration-boundary checkpointing with retention."""
+def _save_atomic(payload, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
 
-    def __init__(self, directory: str, max_to_keep: int = 3):
+
+class CheckpointManager:
+    """Iteration-boundary checkpointing with retention.
+
+    With a process ``group`` every rank of it calls :meth:`save` at the same
+    iterations (the call ends in a barrier)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3, group=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.group = group
+        self.rank = dist.get_rank(group) if group is not None else 0
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, iteration: int) -> str:
         return os.path.join(self.directory, f"ckpt_{iteration:08d}.pt")
+
+    def _sidecar_dir(self) -> str:
+        return os.path.join(self.directory, f"replay_host{self.rank}")
+
+    def _sidecar(self, iteration: int) -> str:
+        return os.path.join(self._sidecar_dir(), f"{iteration}.pt")
 
     def all_iterations(self) -> List[int]:
         found = (_FILE.match(f) for f in os.listdir(self.directory))
@@ -102,21 +127,40 @@ class CheckpointManager:
         replay: Optional[ReplayBuffer],
         generator: torch.Generator,
         extra: Optional[Dict[str, Any]] = None,
+        rank_generator: Optional[torch.Generator] = None,
     ) -> None:
+        """Write iteration ``iteration``. ``generator`` is the generator
+        every rank shares; across ranks ``rank_generator`` (the rank's
+        self-play generator) goes to the rank's sidecar with its replay."""
         payload = {
             "iteration": int(iteration),
             "train_state": train_state.state_dict(),
             "rng": generator.get_state(),
             "extra": extra or {},
         }
-        if replay is not None:
+        if replay is not None and self.group is None:
             payload["replay"] = _replay_state(replay)
-        path = self._path(iteration)
-        tmp = path + ".tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        for old in self.all_iterations()[: -self.max_to_keep]:
-            os.remove(self._path(old))
+        if self.rank == 0:
+            _save_atomic(payload, self._path(iteration))
+        if self.group is not None:
+            if replay is not None:
+                os.makedirs(self._sidecar_dir(), exist_ok=True)
+                side = {"replay": _replay_state(replay)}
+                if rank_generator is not None:
+                    side["rng"] = rank_generator.get_state()
+                _save_atomic(side, self._sidecar(iteration))
+            # Every rank's files are on disk before any rank returns, and
+            # before the listing below decides what to keep.
+            dist.barrier(group=self.group)
+        keep = set(self.all_iterations()[-self.max_to_keep:])
+        if self.rank == 0:
+            for old in set(self.all_iterations()) - keep:
+                os.remove(self._path(old))
+        if self.group is not None and os.path.isdir(self._sidecar_dir()):
+            for f in os.listdir(self._sidecar_dir()):
+                m = _SIDECAR.match(f)
+                if m and int(m.group(1)) not in keep:
+                    os.remove(os.path.join(self._sidecar_dir(), f))
 
     def _load(self, iteration: Optional[int]) -> Tuple[int, Dict[str, Any]]:
         step = iteration if iteration is not None else self.latest_iteration()
@@ -138,6 +182,7 @@ class CheckpointManager:
         train_state: TrainState,
         replay: Optional[ReplayBuffer],
         iteration: Optional[int] = None,
+        rank_generator: Optional[torch.Generator] = None,
     ) -> Tuple[int, TrainState, torch.Tensor, Dict[str, Any]]:
         """Load a checkpoint into ``train_state`` (in place) and ``replay``.
 
@@ -145,12 +190,20 @@ class CheckpointManager:
         ladder over a run's checkpoints). Returns ``(iteration, train_state,
         generator state, extra)``. Raises ``ValueError`` when the checkpoint
         holds another architecture than ``train_state.net``, instead of
-        loading a partly fresh net.
+        loading a partly fresh net. A checkpoint written across ranks has
+        no replay in its file: ``replay`` and ``rank_generator`` are then
+        read from this rank's sidecar.
         """
         step, payload = self._load(iteration)
         saved = payload["train_state"]
         _check_architecture(f"{self.directory}:{step}", train_state.net, saved["net"])
         train_state.load_state_dict(_clone(saved))
         if replay is not None:
-            _restore_replay(replay, payload["replay"])
+            if "replay" in payload:
+                _restore_replay(replay, payload["replay"])
+            else:
+                side = torch.load(self._sidecar(step), map_location="cpu", weights_only=True)
+                _restore_replay(replay, side["replay"])
+                if rank_generator is not None and "rng" in side:
+                    rank_generator.set_state(side["rng"])
         return step, train_state, payload["rng"].clone(), _clone(payload["extra"])

@@ -21,6 +21,8 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import mean_
+
 DECAY_STEPS = 200_000  # whole schedule length, warmup included
 END_FRACTION = 0.05  # the rate held after the decay, as a share of the peak
 CLIP_NORM = 1.0
@@ -142,10 +144,17 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in tensors]))
 
 
-def make_train_step(state: TrainState) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+def make_train_step(state: TrainState, group=None) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Build ``train_step(batch) -> metrics``, which updates ``state`` in
     place. ``metrics`` are device scalars; ``grad_norm`` is the gradients'
-    global norm before the clip."""
+    global norm before the clip.
+
+    With a process ``group``, each rank passes its equal slice of the
+    global batch: after the backward pass one all-reduce takes the mean of
+    the gradients and of the four loss metrics over the ranks, so the norm,
+    the clip and the update are the global batch's (JAX's psum) and every
+    rank's parameters stay bit-identical. ``group=None`` reduces nothing.
+    """
     params = [p for p in state.net.parameters() if p.requires_grad]
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
@@ -153,6 +162,11 @@ def make_train_step(state: TrainState) -> Callable[[Batch], Dict[str, torch.Tens
         loss, metrics = loss_fn(state.net, batch)
         loss.backward()
         grads = [p.grad for p in params]
+        if group is not None:
+            # The four metrics ride in the gradients' collective.
+            scalars = torch.stack(list(metrics.values()))
+            mean_(grads + [scalars], group)
+            metrics = dict(zip(metrics, scalars))
         norm = global_norm(grads)
         # Gradients are left alone below the bound and divided by exactly
         # norm / bound above it (no epsilon in the divisor).

@@ -1,10 +1,15 @@
 """The AlphaZero training loop.
 
-The counterpart of ``alphazeroforhnefatafl_tpu/train/loop.py`` for one
-process and one device: self-play actors, a replay buffer, the learner,
-arena gating, checkpointing and metrics. Everything runs on the env's
-device (``env.device``: the CUDA card unless the caller built the env for
-the CPU).
+The counterpart of ``alphazeroforhnefatafl_tpu/train/loop.py``: self-play
+actors, a replay buffer, the learner, arena gating, checkpointing and
+metrics. Everything runs on the env's device (``env.device``: the CUDA card
+unless the caller built the env for the CPU).
+
+Across ranks (a ``torch.distributed`` process group, see
+``parallel/launch.py``) a rank is what a host is to the JAX loop: it plays
+its own games into its own replay, samples its slice of the global learner
+batch, and the learner's all-reduce makes the update the global batch's.
+In one process the loop makes no collective call.
 """
 
 from __future__ import annotations
@@ -17,10 +22,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.env import TaflEnv
-from ..core.symmetry import random_symmetry_batch
+from ..core.symmetry import NUM_TRANSFORMS, random_symmetry_batch
 from ..models.network import make_network
+from ..parallel import mesh
+from ..parallel.launch import local_batch_slice, world
 from ..search.mcts import MCTSConfig
 from ..utils.metrics import MetricsLogger
 from .arena import play_match
@@ -101,6 +109,26 @@ def gate_passes(config: LoopConfig, result) -> bool:
     raise ValueError(f"unknown gate_on={config.gate_on!r}")
 
 
+def augment_slice(generator, board, policy_idx, global_batch: int, rows: slice):
+    """D4-transform this rank's ``rows`` of a global batch. The transforms
+    are drawn for the whole global batch from the shared ``generator``, so
+    every rank makes the same draw, and ranks that each hold their rows
+    transform them as one process holding the whole batch would. In one
+    process ``rows`` is the whole batch and the draw is
+    :func:`random_symmetry_batch`'s own."""
+    t = torch.randint(0, NUM_TRANSFORMS, (global_batch,), generator=generator, device=board.device)
+    return random_symmetry_batch(None, board, policy_idx, transforms=t[rows])
+
+
+def _rank_generator(generator: torch.Generator, rank: int, device) -> torch.Generator:
+    """The rank's self-play generator, seeded from one draw of the shared
+    generator and the rank (JAX's ``fold_in``): every rank makes the same
+    draw, and each plays other games."""
+    draw = int(torch.randint(0, 2**62, (1,), generator=generator, device=device))
+    seed = int(np.random.SeedSequence([draw, rank]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def run_loop(
     env: TaflEnv,
     config: LoopConfig,
@@ -108,28 +136,44 @@ def run_loop(
     deadline: Optional[float] = None,
     replay: Optional[ReplayBuffer] = None,
 ) -> TrainState:
-    """Run the full AlphaZero iteration cycle; returns the final TrainState."""
+    """Run the full AlphaZero iteration cycle; returns the final TrainState.
+
+    Inside a process group every rank calls it with the same ``config``.
+    ``train_batch_size`` is the global batch and must divide across the
+    ranks; each rank plays ``games_per_iteration // world`` games (at least
+    one) at its actor's ``selfplay.batch_size``. The ranks stop together
+    when any one of them is past its ``deadline``.
+    """
     log = log or MetricsLogger()
     device = env.device
+    rank, world_size = world()
+    group = dist.group.WORLD if world_size > 1 else None
+    rows = local_batch_slice(config.train_batch_size)  # raises on a remainder
 
     net = make_network(env.n, channels=config.channels, blocks=config.blocks, norm=config.norm)
     train_state = init_train_state(
         net, torch.Generator().manual_seed(config.seed), device,
         learning_rate=config.learning_rate,
     )
-    # One generator on the device draws self-play, augmentation and arena
-    # randomness; its state is part of a checkpoint.
+    if group is not None:
+        mesh.replicate(net, group)
+    # One generator on the device, the same on every rank, draws
+    # augmentation and arena randomness; its state is part of a checkpoint.
+    # In one process it draws self-play's too. Across ranks each rank plays
+    # its own games from a generator of its own (saved in its sidecar).
     generator = torch.Generator(device=device).manual_seed(config.seed)
+    sp_generator = generator if group is None else _rank_generator(generator, rank, device)
 
     if replay is None:
         replay = ReplayBuffer(env, config.replay_capacity, config.selfplay.policy_k)
     build_batch = make_batch_builder(env)
-    train_step = make_train_step(train_state)
+    train_step = make_train_step(train_state, group)
     actor = SelfPlayActor(env, net, config.mcts, config.selfplay, device=device)
-    np_rng = np.random.RandomState(config.seed)
+    games_local = max(1, config.games_per_iteration // world_size)
+    np_rng = np.random.RandomState(config.seed + rank)
 
     ckpt = (
-        CheckpointManager(config.checkpoint_dir, max_to_keep=config.checkpoint_keep)
+        CheckpointManager(config.checkpoint_dir, max_to_keep=config.checkpoint_keep, group=group)
         if config.checkpoint_dir
         else None
     )
@@ -141,8 +185,12 @@ def run_loop(
     incumbent = copy.deepcopy(net).requires_grad_(False)
     start_iter = 0
     if ckpt is not None and ckpt.latest_iteration() is not None:
-        start_iter, train_state, rng_state, extra = ckpt.restore(train_state, replay)
+        start_iter, train_state, rng_state, extra = ckpt.restore(
+            train_state, replay, rank_generator=sp_generator
+        )
         generator.set_state(rng_state)
+        if group is not None:
+            mesh.replicate(net, group)
         has_incumbent = "incumbent_params" in extra
         incumbent.load_state_dict(extra["incumbent_params"] if has_incumbent else net.state_dict())
         if gated and not has_incumbent:
@@ -152,30 +200,40 @@ def run_loop(
         start_iter += 1
         log.scalar("resume/iteration", start_iter)
 
-    def checkpoint_extra():
-        return {"incumbent_params": incumbent.state_dict()} if gated else None
+    def save(it):
+        extra = {"incumbent_params": incumbent.state_dict()} if gated else None
+        ckpt.save(it, train_state, replay, generator, extra=extra, rank_generator=sp_generator)
 
     for it in range(start_iter, config.iterations):
         t0 = time.perf_counter()
         # With gating on, the incumbent best net generates the data; the
         # trained candidate must beat it in the arena to take over.
         actor.evaluate = incumbent if gated else net
-        stats = actor.play(replay, generator, max(1, config.games_per_iteration))
+        stats = actor.play(replay, sp_generator, games_local)
         sp_time = time.perf_counter() - t0
         for k, v in stats.as_dict().items():
             log.scalar(f"selfplay/{k}", v, step=it)
         log.scalar("selfplay/games_per_hour", stats.games / max(sp_time, 1e-9) * 3600, step=it)
 
-        ready = replay.size >= config.min_replay_size
+        # Across ranks, gate on the SMALLEST replay: game lengths differ per
+        # rank, and ranks that took different branches around the learner's
+        # collective would deadlock. Every rank reaches this gather every
+        # iteration.
+        ready_size = replay.size
+        if group is not None:
+            ready_size = int(mesh.gather_ints([replay.size], group).min())
+        ready = ready_size >= config.min_replay_size
         metrics = {}
         t1 = time.perf_counter()
         if ready:
             for _ in range(config.train_steps_per_iteration):
-                s = replay.sample(np_rng, config.train_batch_size)
+                s = replay.sample(np_rng, rows.stop - rows.start)
                 board = torch.as_tensor(s.board, device=device)
                 policy_idx = torch.as_tensor(s.policy_idx, device=device)
                 if config.augment_symmetry:
-                    board, policy_idx = random_symmetry_batch(generator, board, policy_idx)
+                    board, policy_idx = augment_slice(
+                        generator, board, policy_idx, config.train_batch_size, rows
+                    )
                 batch = build_batch(board, s.side, s.reps, policy_idx, s.policy_p, s.value)
                 metrics = train_step(batch)
             for k, v in metrics.items():
@@ -184,7 +242,9 @@ def run_loop(
 
         if gated and ready and (it + 1) % config.arena_every == 0:
             # Same search regime as training (max_depth, cpuct, ...), only
-            # noise-free and at the arena budget.
+            # noise-free and at the arena budget. Across ranks every rank
+            # plays the whole match (as the JAX loop does across hosts) on
+            # identical nets with the shared generator.
             arena_cfg = dataclasses.replace(
                 config.mcts, num_simulations=config.arena_sims, dirichlet_eps=0.0
             )
@@ -197,6 +257,12 @@ def run_loop(
             for k, v in result.as_dict().items():
                 log.scalar(f"arena/{k}", float(v), step=it)
             passed = gate_passes(config, result)
+            if group is not None:
+                # Ranks that decided differently would split the incumbents
+                # without an error: refuse to go on.
+                votes = mesh.gather_ints([int(passed)], group)[:, 0]
+                if (votes != votes[0]).any():
+                    raise RuntimeError(f"iteration {it}: the ranks' gate decisions differ: {votes}")
             if config.gate_on == "wilson":
                 log.scalar(
                     "arena/gate_wilson_lb", result.decisive_wilson_lb(config.gate_z), step=it
@@ -212,16 +278,21 @@ def run_loop(
 
         saved = False
         if ckpt is not None and (it + 1) % config.checkpoint_every == 0:
-            ckpt.save(it, train_state, replay, generator, extra=checkpoint_extra())
+            save(it)
             saved = True
 
         # Wall-clock budget: stop cleanly at an iteration boundary. Force a
         # checkpoint if the cadence didn't just write one — otherwise a
         # checkpoint_every > 1 run discards up to checkpoint_every - 1
-        # iterations of work at every deadline stop.
-        if deadline is not None and time.time() >= deadline:
+        # iterations of work at every deadline stop. Across ranks the stop
+        # is collective (any rank past its deadline stops all): a rank that
+        # stopped alone would leave the others waiting in a collective.
+        stop = deadline is not None and time.time() >= deadline
+        if group is not None:
+            stop = bool(mesh.gather_ints([int(stop)], group).any())
+        if stop:
             if ckpt is not None and not saved:
-                ckpt.save(it, train_state, replay, generator, extra=checkpoint_extra())
+                save(it)
             log.scalar("stop/deadline_reached", 1.0, step=it)
             log.flush(step=it)
             break

@@ -116,14 +116,34 @@ Phases, in order; any failure exits non-zero:
    parameters; ``cross_ladder`` with ``latest`` and ``mid`` entries (both
    2 games a pair, 16 simulations, 6 plies); ``search_ab`` (L=2, recall 0.9
    against serial, 64 games, 128 simulations, 6 plies); ``bench_mcts`` at
-   B=1024 (128 simulations, L=2, exactly one mask and 192 step launches).
+   B=1024 (128 simulations, L=2, exactly one mask and 192 step launches);
+17. two ranks of ``run_loop`` on the one card, joined by ``torch.distributed``
+   over gloo (NCCL refuses two ranks on one card), started with the
+   ``spawn`` method and meeting in a ``FileStore``: the flagship net and
+   the flagship record's search (128 simulations, 32 children, L=2, recall
+   0.9), 256 games a rank of 8 plies in a batch of 256, 10 learner steps
+   at a global batch of 256 (128 a rank), a 64-game Wilson-gated arena of 8
+   plies at 64 simulations, a checkpoint each iteration, two iterations and
+   a resumed third that restores each rank's own replay sidecar. Each rank
+   first holds one float32 step on its half of a batch against one step on
+   the whole batch (loss metrics within 1e-4 relative, the gradient within
+   1e-4); the ranks' parameter digests are gathered and compared after every
+   learner step; the replays must differ, the arenas agree, and each rank's
+   launches split exactly into self-play moves (1 mask, 65 steps), arena
+   plies (1 mask, 33 steps) and learner steps (1 mask). One iteration at
+   world 1 of the same configuration runs before and after the ranks; one
+   line ``{"multirank": {...}}`` sets world 1 beside world 2 (self-play
+   positions/s summed over the ranks, seconds by part, the all-reduce's ms
+   a step). Then ``dryrun_multichip(2)`` on the card.
 
-The launch counters are set to 0 before each of the phases 5 and 7 to 16
-(and each driver of phase 16) and read after it. The second-to-last line is
+The launch counters are set to 0 before each of the phases 5 and 7 to 17
+(each driver of phase 16, each rank and world-1 run of phase 17) and read
+after it. The second-to-last line is
 ``{"kernels": [...]}``, whose ``launches`` sum those phases and whose
 ``launches_by_path`` split them into self-play, learner, arena, multi-leaf
 self-play, Gumbel self-play, config match, ladder, the bench's rollouts and
-searches, play, determinism, profile_wave and each run driver; the last
+searches, play, determinism, profile_wave, each run driver, the two ranks'
+loop (``multirank``) and its world-1 runs; the last
 line is ``{"ok": true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
@@ -1505,6 +1525,316 @@ def phase_run_drivers(device, card):
     return launches
 
 
+MULTIRANK_RANKS = 2
+MULTIRANK_STEPS = 10  # learner steps an iteration, at a global batch of 256
+
+
+def multirank_config(world, ckpt_dir, iterations):
+    """Phase 17's loop: the flagship record's search (128 simulations, 32
+    children, L=2, recall 0.9), 256 games a rank of 8 plies in a batch of
+    256, 10 learner steps at a global batch of 256, a 64-game Wilson-gated
+    arena of 8 plies at 64 simulations and a checkpoint each iteration."""
+    from alphazeroforhnefatafl_tpu_torch.train.loop import LoopConfig
+    from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayConfig
+
+    return LoopConfig(
+        preset="copenhagen", channels=64, blocks=6, iterations=iterations,
+        games_per_iteration=256 * world, train_steps_per_iteration=MULTIRANK_STEPS,
+        train_batch_size=256, min_replay_size=512, arena_games=64, arena_every=1,
+        arena_sims=64, arena_max_game_len=8, gate_on="wilson", gate_threshold=0.5,
+        checkpoint_dir=ckpt_dir, seed=SEED, mcts=flagship_search(2),
+        selfplay=SelfPlayConfig(batch_size=256, max_game_len=8),
+    )
+
+
+def digest_int(net) -> int:
+    """56 bits of the SHA-1 of the net's tensors (fits an int64 gather)."""
+    from alphazeroforhnefatafl_tpu_torch.parallel.dryrun import params_digest
+
+    return int(params_digest(net)[:14], 16)
+
+
+def timed_loop(env, config, log_path, replay, group):
+    """``run_loop`` with its arena matches and its learner all-reduces timed
+    (each between two ``torch.cuda.synchronize()``) and, across ranks, the
+    ranks' parameter digests gathered and compared after every learner
+    step. Returns (state, logged lines, parts)."""
+    import os
+
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.parallel import mesh
+    from alphazeroforhnefatafl_tpu_torch.train import learner, loop
+    from alphazeroforhnefatafl_tpu_torch.utils.metrics import MetricsLogger
+
+    parts = {"arena_s": [], "allreduce_ms": [], "digests_checked": 0,
+             "arena_launches": {"legal_mask": 0, "step": 0}}
+    untimed_match, untimed_mean, unchecked_make = loop.play_match, learner.mean_, loop.make_train_step
+
+    def timed_match(*args, **kw):
+        before = read_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = untimed_match(*args, **kw)
+        torch.cuda.synchronize()
+        parts["arena_s"].append(time.perf_counter() - t)
+        for k, v in read_launches().items():
+            parts["arena_launches"][k] += v - before[k]
+        return result
+
+    def timed_mean(tensors, grp):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        untimed_mean(tensors, grp)
+        torch.cuda.synchronize()
+        parts["allreduce_ms"].append((time.perf_counter() - t) * 1e3)
+
+    def checked_make(state, grp=None):
+        step = unchecked_make(state, grp)
+
+        def checked_step(batch):
+            metrics = step(batch)
+            if grp is not None:
+                digests = mesh.gather_ints([digest_int(state.net)], grp)[:, 0]
+                if (digests != digests[0]).any():
+                    raise RuntimeError(f"after learner step {state.step} the ranks' parameters "
+                                       f"differ: digests {digests}")
+                parts["digests_checked"] += 1
+            return metrics
+
+        return checked_step
+
+    loop.play_match, learner.mean_, loop.make_train_step = timed_match, timed_mean, checked_make
+    try:
+        with open(os.devnull, "w") as quiet:
+            log = MetricsLogger(stream=quiet, jsonl_path=log_path)
+            state = loop.run_loop(env, config, log=log, replay=replay)
+            log.close()
+    finally:
+        loop.play_match, learner.mean_, loop.make_train_step = untimed_match, untimed_mean, unchecked_make
+    lines = [json.loads(line) for line in Path(log_path).read_text().splitlines()]
+    return state, lines, parts
+
+
+def halves_check(device, group, rank):
+    """One float32 step of the 64x6 net on this rank's half of a batch of
+    256 (TF32 off) against one step of a copy on the whole batch in this
+    process: the loss metrics within 1e-4 relative and the gradient the
+    optimizer is given within 1e-4. Returns the largest gradient error."""
+    import copy
+
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.train.learner import Batch, init_train_state, make_train_step
+
+    rng = np.random.RandomState(SEED)
+    B, n, A = 256, 11, 11 * 11 * 4 * 10
+    legal = rng.rand(B, A) < 0.05
+    legal[:, 0] = True
+    target = np.where(legal, rng.gamma(0.5, size=(B, A)), 0.0)
+    target = (target / target.sum(1, keepdims=True)).astype(np.float32)
+    arrays = dict(obs=rng.rand(B, n, n, 6).astype(np.float32), policy_target=target,
+                  value_target=rng.uniform(-1, 1, B).astype(np.float32), legal_mask=legal)
+    rows = slice(rank * B // 2, (rank + 1) * B // 2)
+    net = make_network(n, channels=64, blocks=6, dtype=torch.float32)
+    twin = copy.deepcopy(net)  # initialised on the CPU, as init_train_state wants
+    whole = init_train_state(net, torch.Generator().manual_seed(SEED), device)
+    halves = init_train_state(twin, torch.Generator().manual_seed(SEED), device)
+    want = make_train_step(whole)(Batch(**{k: torch.as_tensor(v, device=device)
+                                           for k, v in arrays.items()}))
+    got = make_train_step(halves, group)(Batch(**{k: torch.as_tensor(v[rows], device=device)
+                                                  for k, v in arrays.items()}))
+    for k in ("loss", "grad_norm", "policy_loss", "value_loss"):
+        a, b = float(got[k]), float(want[k])
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise RuntimeError(f"2-rank step on halves: {k} {a}, 1-rank step on the whole {b}")
+    err = max(float((p.grad - q.grad).abs().max())
+              for p, q in zip(halves.net.parameters(), whole.net.parameters()))
+    if err > 1e-4:
+        raise RuntimeError(f"2-rank step on halves: gradient off the whole batch's by {err}")
+    return err
+
+
+def multirank_rank(rank, work):
+    """One rank of phase 17 (started with the ``spawn`` method): the halves
+    check, two gated iterations with a checkpoint each, the rank's sidecar
+    read back, and a resumed third iteration; writes ``rank{r}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.parallel import mesh
+    from alphazeroforhnefatafl_tpu_torch.parallel.dryrun import replay_digest
+    from alphazeroforhnefatafl_tpu_torch.parallel.launch import (
+        initialize_distributed, rank_log_path)
+    from alphazeroforhnefatafl_tpu_torch.train.checkpoint import CheckpointManager
+    from alphazeroforhnefatafl_tpu_torch.train.learner import init_train_state
+    from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
+
+    import os
+
+    # The host's cores split between the ranks (torchrun gives each rank one).
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // MULTIRANK_RANKS))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    topo = initialize_distributed(f"file://{work}/store", MULTIRANK_RANKS, rank, device="cuda")
+    group = dist.group.WORLD
+    try:
+        out = {"backend": topo.backend, "device": str(topo.device),
+               "halves_err": halves_check(topo.device, group, rank)}
+        env = make_env("copenhagen", topo.device)
+        ckpt = f"{work}/ckpt"
+        config = multirank_config(MULTIRANK_RANKS, ckpt, 2)
+        log_path = rank_log_path(f"{work}/metrics.jsonl", rank)
+        replay = ReplayBuffer(env, config.replay_capacity, config.selfplay.policy_k)
+        zero_launches()
+        t0 = time.perf_counter()
+        state, _, first = timed_loop(env, config, log_path, replay, group)
+        out["first_s"] = time.perf_counter() - t0
+        out["first_step"], out["replay"] = state.step, replay_digest(replay)
+        # The rank's own sidecar, read back into a fresh replay.
+        fresh = ReplayBuffer(env, config.replay_capacity, config.selfplay.policy_k)
+        probe = init_train_state(make_network(env.n, channels=config.channels,
+                                              blocks=config.blocks),
+                                 torch.Generator().manual_seed(1), topo.device)
+        CheckpointManager(ckpt, group=group).restore(probe, fresh)
+        out["restored"] = replay_digest(fresh)
+        t0 = time.perf_counter()
+        state, lines, second = timed_loop(
+            env, multirank_config(MULTIRANK_RANKS, ckpt, 3), log_path,
+            ReplayBuffer(env, config.replay_capacity, config.selfplay.policy_k), group)
+        out["second_s"] = time.perf_counter() - t0
+        out["launches"] = read_launches()
+        out.update(step=state.step, params=digest_int(state.net), lines=lines,
+                   arena_s=first["arena_s"] + second["arena_s"],
+                   arena_launches={k: first["arena_launches"][k] + second["arena_launches"][k]
+                                   for k in first["arena_launches"]},
+                   allreduce_ms=first["allreduce_ms"] + second["allreduce_ms"],
+                   digests_checked=first["digests_checked"] + second["digests_checked"])
+        out["replays_differ"] = bool(
+            len(set(mesh.gather_ints([int(out["replay"][:14], 16)], group)[:, 0])) == 2)
+        with open(f"{work}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def iteration_rates(lines_by_rank, arena_s_by_rank):
+    """Per iteration: self-play positions/s summed over the ranks, and the
+    ranks' largest self-play, learner and arena seconds."""
+    out = []
+    for i, rows in enumerate(zip(*[[l for l in lines if "selfplay/games" in l]
+                                   for lines in lines_by_rank])):
+        out.append({
+            "positions_per_s": sum(r["selfplay/positions"] / r["time/selfplay_s"] for r in rows),
+            "selfplay_s": max(r["time/selfplay_s"] for r in rows),
+            "train_s": max(r["time/train_s"] for r in rows),
+            "arena_s": max(a[i] for a in arena_s_by_rank),
+        })
+    return out
+
+
+def phase_multirank(device, card):
+    """Two ranks of ``run_loop`` on the one card over gloo, between two
+    world-1 iterations of the same configuration, then
+    ``dryrun_multichip(2)``."""
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.parallel.dryrun import dryrun_multichip
+    from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
+
+    env = make_env("copenhagen", device)
+    t_phase = time.perf_counter()
+    world1, world1_launches = [], {"legal_mask": 0, "step": 0}
+
+    def one_rank_iteration():
+        with tempfile.TemporaryDirectory() as tmp:
+            config = multirank_config(1, None, 1)
+            replay = ReplayBuffer(env, config.replay_capacity, config.selfplay.policy_k)
+            zero_launches()
+            _, lines, parts = timed_loop(env, config, f"{tmp}/m.jsonl", replay, None)
+            for k, v in read_launches().items():
+                world1_launches[k] += v
+        world1.extend(iteration_rates([lines], [parts["arena_s"]]))
+
+    one_rank_iteration()
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        try:
+            mp.start_processes(multirank_rank, args=(work,), nprocs=MULTIRANK_RANKS, join=True,
+                               start_method="spawn")
+        except ProcessException as e:
+            fail(f"a rank of phase 17 failed: {e}")
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.loads(Path(f"{work}/rank{r}.json").read_text())
+                 for r in range(MULTIRANK_RANKS)]
+    one_rank_iteration()
+
+    steps = 3 * MULTIRANK_STEPS
+    for r, got in enumerate(ranks):
+        if got["first_step"] != 2 * MULTIRANK_STEPS or got["step"] != steps:
+            fail(f"rank {r}: step counts {got['first_step']} and {got['step']}")
+        if got["digests_checked"] != steps:
+            fail(f"rank {r}: {got['digests_checked']} parameter digests compared in {steps} steps")
+        if got["restored"] != got["replay"]:
+            fail(f"rank {r}: its sidecar restores another replay than its own")
+        resumed = [l["resume/iteration"] for l in got["lines"] if "resume/iteration" in l]
+        if resumed != [2.0]:
+            fail(f"rank {r}: the second call resumed at {resumed}, not 2")
+        if len(got["allreduce_ms"]) != steps:
+            fail(f"rank {r}: {len(got['allreduce_ms'])} all-reduces in {steps} steps")
+        # An arena ply (64 simulations, L=2) launches one mask and 33 steps,
+        # a self-play move (128 simulations) one mask and 65 steps, a
+        # learner step one mask.
+        n, arena = got["launches"], got["arena_launches"]
+        moves = n["legal_mask"] - arena["legal_mask"] - steps
+        if not (arena["legal_mask"] > 0 and arena["step"] == 33 * arena["legal_mask"]
+                and moves > 0 and n["step"] - arena["step"] == 65 * moves):
+            fail(f"rank {r}: launches {n} (arena {arena}) do not split into self-play "
+                 f"moves, arena plies and {steps} learner steps")
+    if ranks[0]["params"] != ranks[1]["params"]:
+        fail("the ranks end with different parameters")
+    if not ranks[0]["replays_differ"] or ranks[0]["replay"] == ranks[1]["replay"]:
+        fail("the two ranks played the same games")
+    arenas = [[{k: v for k, v in l.items() if k.startswith("arena/")} for l in got["lines"]]
+              for got in ranks]
+    if arenas[0] != arenas[1]:
+        fail(f"the ranks' arenas differ: {arenas}")
+    world2 = iteration_rates([got["lines"] for got in ranks], [got["arena_s"] for got in ranks])
+    # The resumed call's log holds iterations 0-2; its own iteration is the last.
+    if len(world2) != 3:
+        fail(f"{len(world2)} iterations logged across the ranks, not 3")
+
+    dryrun = dryrun_multichip(MULTIRANK_RANKS)
+    launches = {k: sum(got["launches"][k] for got in ranks) for k in ("legal_mask", "step")}
+    w1_rate = float(np.median([w["positions_per_s"] for w in world1]))
+    w2_rate = float(np.median([w["positions_per_s"] for w in world2]))
+    allreduce = sorted(ms for got in ranks for ms in got["allreduce_ms"])
+    print(json.dumps({"multirank": {
+        "card": card, "backend": ranks[0]["backend"], "ranks": MULTIRANK_RANKS,
+        "world1": world1, "world2": world2,
+        "selfplay_positions_per_s": {"world1": w1_rate, "world2": w2_rate,
+                                     "ratio": w2_rate / w1_rate},
+        "allreduce_ms": {"median": float(np.median(allreduce)), "min": allreduce[0],
+                         "max": allreduce[-1], "count": len(allreduce)},
+        "halves_max_abs_grad_err": max(got["halves_err"] for got in ranks),
+        "ranks_seconds": ranks_s, "phase_seconds": time.perf_counter() - t_phase,
+        "launches": launches, "world1_launches": world1_launches,
+        "dryrun_decisive": dryrun["arena/decisive"],
+    }}), flush=True)
+    print(f"multirank on {card}: {MULTIRANK_RANKS} ranks on one card over "
+          f"{ranks[0]['backend']}: parameters bit-identical after each of {steps} learner steps, "
+          f"replays differ, each rank resumed from its own sidecar; self-play positions/s "
+          f"world 1 {w1_rate:.1f}, world 2 {w2_rate:.1f} (x{w2_rate / w1_rate:.3f}); all-reduce "
+          f"{float(np.median(allreduce)):.3f} ms a step (median); launches {launches}",
+          flush=True)
+    return {"multirank": launches, "multirank_world1": world1_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1580,6 +1910,9 @@ def main() -> int:
     determinism_launches = phase_determinism(device, card)
     profile_launches = phase_profile_wave(device, card)
     driver_launches = phase_run_drivers(device, card)
+
+    # Phase 17: two ranks of the loop on the one card, and the dry run.
+    multirank_launches = phase_multirank(device, card)
     by_path = {
         name: {
             "selfplay": serial["launches"][name] + serial_again["launches"][name]
@@ -1597,6 +1930,7 @@ def main() -> int:
             "determinism": determinism_launches[name],
             "profile_wave": profile_launches[name],
             **{driver: counts[name] for driver, counts in driver_launches.items()},
+            **{path: counts[name] for path, counts in multirank_launches.items()},
         }
         for name in ("legal_mask", "step")
     }

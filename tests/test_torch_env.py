@@ -225,6 +225,8 @@ def test_observe_matches_jax():
     got = torch_env.observe(to_torch(state))
     assert got.dtype == torch.float32 and got.shape == want.shape
     assert np.array_equal(want, got.numpy())
+    # A JAX-style caller reads the plane count off the env.
+    assert torch_env.num_observation_planes == jax_env.num_observation_planes == got.shape[-1]
 
 
 def test_matches_pallas_kernels_in_interpret_mode():
