@@ -176,11 +176,45 @@ Phases, in order; any failure exits non-zero:
    limit, W and the backend, self-play positions/s summed over the ranks
    beside world 1's, a rank's arena seconds beside world 1's, the per-ply
    gather's ms and its share of each rank's arena, and the all-reduce's ms
-   a step.
+   a step;
+19. whole games: ``train_run`` through its ``main(argv)`` with the flags of
+   the flagship record's last line (64x6 GroupNorm net with its bf16 trunk,
+   games of 256 plies and arena games of 300, the temperature switch at
+   move 12, resignation at 0.97 from move 30, 32 children, L=2, recall 0.9,
+   alpha 10 / legal moves, a Wilson gate that needs 4 decisive games, a
+   minimum replay of 4,096), cut in simulations and counts only
+   (:data:`WHOLE_GAME_CUTS`: one iteration, 256 games at a batch of 256,
+   self-play at 32 simulations and the arena at 16, 20 learner steps at
+   batch 512, a ring of 40,960), every game played to its end. A
+   :class:`GameRecorder` keeps on the host every move-level env step of
+   self-play and the arena, one wave's leaf step a self-play move, the
+   restarts, the replay's writes and samples and the learner's metrics.
+   The phase fails unless (a) every game ends by a rule, by resignation or
+   at its cap, rows restart mid-batch, and one self-play game is decided;
+   (b) the port's oracle replays every self-play and arena game from the
+   start FEN, every action legal, to the env's positions, result, reason
+   and repetition counts; (c) both kernels equal their plain versions bit
+   for bit on every recorded step from move 100 on, ended arena games
+   among them (which must stay unchanged and set ``info.invalid``), and on
+   every sampled wave; (d) the value targets are each game's outcome for
+   its movers (a resigned game lost by the resigner, 0 for a truncated
+   one), the ring wrapped, and every learner sample is the newest position
+   of its slot; (e) every loss is finite, the value loss above 0, and the
+   learner's batches hold decided (+1 or -1) value targets; (f)
+   the arena reached 4 decisive games and the loop's promotion equals
+   ``gate_passes``; (g) the launches by batch are exact. Where the record's
+   threshold fired no resignation, 64 games more at the same width and
+   length resign at a threshold taken from the run's root values. One line
+   ``{"whole_games": {...}}`` holds the games, their average length and how
+   they ended, self-play seconds and positions/s beside phase 5's, the
+   arena's seconds, plies, decisive games and gate decision, the
+   resignation run, and ``torch.profiler``'s busy share of one self-play
+   move after move 100 with the two kernels' share of its card time.
 
-The launch counters are set to 0 before each of the phases 5 and 7 to 18
+The launch counters are set to 0 before each of the phases 5 and 7 to 19
 (each driver of phase 16, each rank and world-1 run of phases 17 and 18,
-and each split match) and read after it. The second-to-last line is
+each split match, and phase 19's iteration and resignation run) and read
+after it. The second-to-last line is
 ``{"kernels": [...]}``, whose ``launches`` sum those phases and whose
 ``launches_by_path`` split them into self-play, learner, arena, multi-leaf
 self-play, Gumbel self-play, config match, ladder, the bench's rollouts and
@@ -190,7 +224,8 @@ ranks and whole (``split_match``, ``split_match_world1``) and, where
 phase 18 ran, the same four across the cards (``across_cards``,
 ``across_cards_world1``, ``across_cards_split_match``,
 ``across_cards_split_match_world1``; the ``torchrun`` ranks' launches are
-their processes' own and are not counted); the last line is ``{"ok":
+their processes' own and are not counted), and phase 19's
+(``whole_games``, ``whole_games_resign``); the last line is ``{"ok":
 true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
@@ -204,6 +239,7 @@ phase 18; it fails on fewer than two cards.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -2325,6 +2361,774 @@ def check_split_match(ranks, whole, world):
         fail(f"the split match decided nothing: counts {c}, fallback {whole['fallback']}")
 
 
+#: Phase 19's cuts of the flagship record (``runs/copenhagen_r4ab_puct/
+#: config.jsonl``, last line), in simulations and counts only: one iteration
+#: with its arena, 256 games at a self-play batch of 256, self-play at 32
+#: simulations and the arena at 16 (both at the record's two leaves a
+#: wave), 20 learner steps (at the record's batch of 512) and a ring of
+#: 40,960 positions. Plies (games of 256, arena games of 300), the net's
+#: width, the temperature switch, resignation, the gate and the minimum
+#: replay stay the record's. The iteration's games write about 54,000
+#: positions, so the ring wraps; but the rows still on their first game
+#: are all truncated at the last move and write about 26,000 positions of
+#: value 0 at once (101 games of 256 plies on the H100), so a ring of
+#: 16,384 holds those alone and the learner sees no decided target. At
+#: 40,960 it also holds the games decided before them.
+WHOLE_GAME_CUTS = {"iterations": 1, "arena_every": 1, "games": 256, "selfplay_batch": 256,
+                   "sims": 32, "arena_sims": 16, "train_steps": 20,
+                   "replay_capacity": 40960}
+#: Moves (self-play) and plies (arena) from which every recorded step is held
+#: against the kernels' plain versions.
+LATE_PLY = 100
+#: The second self-play, where the record's resignation threshold fired no
+#: resignation: this many games at a batch of this many.
+RESIGN_GAMES = 64
+STATE_FIELDS = ("board", "side_to_play", "recent_plays", "rep_first_i", "reps", "mid_pair",
+                "plays_since_capture", "turn", "terminated", "result", "reason")
+INFO_FIELDS = ("captures", "n_captures", "terminated", "result", "reason", "reward_mover",
+               "invalid")
+#: How a game ended: the env's reason codes (``core/rules.py`` ``WinReason``;
+#: draws at 16 + ``DrawReason``), then the two ends that the self-play
+#: actor makes itself.
+END_REASONS = {0: "king_escape", 1: "exit_fort", 2: "capture", 3: "capture", 4: "encirclement",
+               5: "no_moves", 6: "repetition", 16: "repetition", 17: "no_moves"}
+END_NAMES = ("king_escape", "capture", "encirclement", "exit_fort", "repetition", "no_moves",
+             "resigned", "truncated")
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_state(states) -> dict:
+    """An ``EnvState`` batch as numpy arrays, field by field."""
+    return {f: getattr(states, f).cpu().numpy() for f in STATE_FIELDS}
+
+
+def device_state(state: dict, device):
+    """A :func:`host_state` record back on ``device``."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import EnvState
+
+    return EnvState(**{f: torch.as_tensor(v, device=device) for f, v in state.items()})
+
+
+def row(state: dict, r: int) -> dict:
+    return {f: v[r] for f, v in state.items()}
+
+
+def same_row(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[f], b[f]) for f in a)
+
+
+class GameRecorder:
+    """Records on the host every move-level env step of self-play and of the
+    arena: the states before and after, the actions, and the step's info
+    (all but the next mask, which the kernel checks recompute). Of the
+    search's leaf steps it keeps one wave a self-play move, the middle one.
+    It also keeps the rows that each self-play move restarted, every game
+    written to the replay, every sample the learner draws, every learner
+    step's metrics, each move's root values, the arena's result and seconds,
+    and the loop's config.
+
+    :meth:`installed` wraps, for the length of a block, the class methods
+    ``TaflEnv.step_many``, ``MCTS.search``, ``SelfPlayActor.play`` and ``.move``,
+    ``ReplayBuffer.add`` and ``ReplayBuffer.sample``, and the module
+    functions ``arena._play``, ``selfplay.where_state``,
+    ``loop.make_train_step`` and ``train_run.run_loop``: the entry points
+    run as they are, and only their calls are seen."""
+
+    def __init__(self):
+        self.steps = {"selfplay": [], "arena": []}
+        self.env = None
+        self.waves = []
+        self.ended = {}
+        self.adds = []
+        self.samples = []
+        self.train_metrics = []
+        self.actors = []
+        self.stats = []
+        self.root_values = []
+        self.arena_results = []
+        self.seconds = {"selfplay": 0.0, "arena": 0.0}
+        self.replay = None
+        self.loop_config = None
+        self.path = None
+        self._wave = None  # [waves seen, the one to keep] inside a search
+
+    def _record(self, states, actions, new, info) -> dict:
+        return {"before": host_state(states), "actions": actions.cpu().numpy(),
+                "after": host_state(new),
+                "info": {f: getattr(info, f).cpu().numpy() for f in INFO_FIELDS}}
+
+    @contextlib.contextmanager
+    def installed(self):
+        from alphazeroforhnefatafl_tpu_torch.core.env import TaflEnv
+        from alphazeroforhnefatafl_tpu_torch.scripts import train_run
+        from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTS
+        from alphazeroforhnefatafl_tpu_torch.train import arena, loop, selfplay
+        from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
+
+        rec, patches = self, []
+
+        def wrap(owner, name):
+            """Decorate ``make(real) -> wrapper``: ``owner.name`` becomes the
+            wrapper until the block ends."""
+            def install(make):
+                real = owner.__dict__[name]
+                patches.append((owner, name, real))
+                setattr(owner, name, make(real))
+            return install
+
+        @wrap(TaflEnv, "step_many")
+        def _(real):
+            def step_many(env, states, actions):
+                new, info = real(env, states, actions)
+                rec.env = env
+                if rec._wave is not None:
+                    if rec._wave[0] == rec._wave[1]:
+                        rec.waves.append(rec._record(states, actions, new, info))
+                    rec._wave[0] += 1
+                elif rec.path is not None:
+                    rec.steps[rec.path].append(rec._record(states, actions, new, info))
+                return new, info
+            return step_many
+
+        @wrap(MCTS, "search")
+        def _(real):
+            def search(mcts, *args, **kw):
+                cfg = mcts.config
+                keep = cfg.num_simulations // cfg.leaves_per_wave // 2
+                rec._wave = [0, keep if rec.path == "selfplay" else -1]
+                try:
+                    return real(mcts, *args, **kw)
+                finally:
+                    rec._wave = None
+            return search
+
+        @wrap(selfplay.SelfPlayActor, "play")
+        def _(real):
+            def play(actor, *args, **kw):
+                rec.actors.append(actor)
+                rec.path = "selfplay"
+                _sync(actor.device)
+                t0 = time.perf_counter()
+                try:
+                    stats = real(actor, *args, **kw)
+                finally:
+                    rec.path = None
+                _sync(actor.device)
+                rec.seconds["selfplay"] += time.perf_counter() - t0
+                rec.stats.append(stats)
+                return stats
+            return play
+
+        @wrap(selfplay.SelfPlayActor, "move")
+        def _(real):
+            def move(actor, states, *args, **kw):
+                out = real(actor, states, *args, **kw)
+                rec.root_values.append((out[5].cpu().numpy(), states.turn.cpu().numpy()))
+                return out
+            return move
+
+        @wrap(arena, "_play")
+        def _(real):
+            def _play(env, *args, **kw):
+                rec.path = "arena"
+                _sync(env.device)
+                t0 = time.perf_counter()
+                try:
+                    result = real(env, *args, **kw)
+                finally:
+                    rec.path = None
+                _sync(env.device)
+                rec.seconds["arena"] += time.perf_counter() - t0
+                rec.arena_results.append(result)
+                return result
+            return _play
+
+        @wrap(selfplay, "where_state")
+        def _(real):
+            def where_state(mask, a, b):
+                rec.ended[len(rec.steps["selfplay"]) - 1] = mask.cpu().numpy().copy()
+                return real(mask, a, b)
+            return where_state
+
+        @wrap(ReplayBuffer, "add")
+        def _(real):
+            def add(buf, *arrays):
+                rec.replay = buf
+                rec.adds.append((len(rec.steps["selfplay"]) - 1,
+                                 tuple(np.array(a) for a in arrays)))
+                return real(buf, *arrays)
+            return add
+
+        @wrap(ReplayBuffer, "sample")
+        def _(real):
+            def sample(buf, rng, batch_size):
+                probe = np.random.RandomState()
+                probe.set_state(rng.get_state())
+                slots = probe.randint(0, buf.size, size=batch_size)
+                out = real(buf, rng, batch_size)
+                rec.samples.append((slots, buf.total_added, out))
+                return out
+            return sample
+
+        @wrap(loop, "make_train_step")
+        def _(real):
+            def make_train_step(*args, **kw):
+                step = real(*args, **kw)
+
+                def train_step(batch):
+                    metrics = step(batch)
+                    got = {k: float(v) for k, v in metrics.items()}
+                    got["decided_targets"] = int((batch.value_target.abs() == 1).sum())
+                    rec.train_metrics.append(got)
+                    return metrics
+                return train_step
+            return make_train_step
+
+        @wrap(train_run, "run_loop")
+        def _(real):
+            def run_loop(env, config, *args, **kw):
+                rec.loop_config = config
+                return real(env, config, *args, **kw)
+            return run_loop
+
+        try:
+            yield self
+        finally:
+            for owner, name, real in reversed(patches):
+                setattr(owner, name, real)
+
+
+def selfplay_games(rec: GameRecorder, cap: int) -> list:
+    """The self-play games that ended, in the order the actor wrote them to
+    the replay, each a dict: its row, the batched move it started at, its
+    actions, the states before each of its moves, how it ended and its last
+    state. Fails unless every row carries its game from one move to the
+    next, a row restarts from the fresh state exactly after its game ended,
+    and every terminated game and every game at its cap ended."""
+    steps = rec.steps["selfplay"]
+    B = len(steps[0]["actions"])
+    fresh = row(steps[0]["before"], 0)
+    start = np.zeros(B, np.int64)
+    acts = [[] for _ in range(B)]
+    befores = [[] for _ in range(B)]
+    prev_end = np.ones(B, bool)
+    games = []
+    for m, st in enumerate(steps):
+        before, after = st["before"], st["after"]
+        for r in range(B):
+            want = fresh if prev_end[r] else row(steps[m - 1]["after"], r)
+            if not same_row(row(before, r), want):
+                fail(f"self-play move {m} row {r}: the state is neither the row's last one "
+                     f"nor, after its game ended, a fresh game")
+            acts[r].append(int(st["actions"][r]))
+            befores[r].append(row(before, r))
+        end = rec.ended.get(m, np.zeros(B, bool))
+        must = after["terminated"] | (after["turn"] >= cap)
+        if (must & ~end).any():
+            fail(f"self-play move {m}: rows {np.nonzero(must & ~end)[0].tolist()} "
+                 "terminated or reached the cap and played on")
+        for r in np.nonzero(end)[0]:
+            last = row(after, r)
+            if last["terminated"]:
+                how = END_REASONS[int(last["reason"])]
+            elif last["turn"] >= cap:
+                how = "truncated"
+            else:
+                how = "resigned"
+            games.append({"row": int(r), "first_move": int(start[r]), "end_move": m,
+                          "actions": acts[r], "befores": befores[r], "how": how, "last": last})
+            start[r], acts[r], befores[r] = m + 1, [], []
+        prev_end = end
+    return games
+
+
+def check_selfplay_replay(rec: GameRecorder, games: list) -> dict:
+    """Each game's replay write against its moves: the positions are the
+    states before its moves (board, side to move, the mover's repetition
+    count), and the value targets are the game's outcome for each mover: +1
+    on the winner's positions and -1 on the loser's for a decided game (a
+    resigned game is lost by the side that resigned, the mover of its last
+    position), 0 on a drawn or truncated one. Returns the counts."""
+    if len(rec.adds) != len(games):
+        fail(f"the replay took {len(rec.adds)} games, the moves ended {len(games)}")
+    decided = 0
+    for g, (move, (board, side, reps, _, _, z)) in zip(games, rec.adds):
+        what = f"self-play game of row {g['row']} from move {g['first_move']}"
+        if move != g["end_move"] or len(board) != len(g["actions"]):
+            fail(f"{what}: written at move {move} with {len(board)} positions; it ended at "
+                 f"move {g['end_move']} after {len(g['actions'])}")
+        want_side = np.array([b["side_to_play"] for b in g["befores"]], np.int8)
+        want_reps = np.array([b["reps"][b["side_to_play"]] for b in g["befores"]], np.int8)
+        if not (np.array_equal(board, np.stack([b["board"] for b in g["befores"]]))
+                and np.array_equal(side, want_side) and np.array_equal(reps, want_reps)):
+            fail(f"{what}: the replay's positions are not the game's")
+        last = g["last"]
+        if g["how"] == "resigned":
+            winner = 1 - int(side[-1])
+        elif g["how"] == "truncated" or int(last["result"]) == 2:
+            winner = None
+        else:
+            winner = int(last["result"])
+        want = (np.zeros(len(z), np.float32) if winner is None
+                else np.where(side == winner, 1.0, -1.0).astype(np.float32))
+        if not np.array_equal(z, want):
+            fail(f"{what}: value targets {np.unique(z).tolist()} for a game that ended by "
+                 f"{g['how']} (winner {winner})")
+        decided += winner is not None
+    return {"decided": decided}
+
+
+def check_ring(rec: GameRecorder) -> dict:
+    """The replay ring after the iteration's games: it holds exactly the
+    last ``capacity`` positions written, each in its slot, and every sample
+    the learner drew returned positions of those (each the newest position
+    written to its slot), not positions that the wrap overwrote."""
+    buf = rec.replay
+    cap = buf.capacity
+    written = [np.concatenate([a[i] for _, a in rec.adds]) for i in range(6)]
+    total = len(written[0])
+    if buf.total_added != total or total <= cap:
+        fail(f"the ring of {cap} took {buf.total_added} positions ({total} written): "
+             "it did not wrap")
+    slots = np.arange(total - cap, total) % cap
+    fields = ("board", "side", "reps", "policy_idx", "policy_p", "value")
+    for name, w in zip(fields, written):
+        if not np.array_equal(getattr(buf, name)[slots], w[total - cap:]):
+            fail(f"after the wrap the ring's {name} is not the last {cap} positions written")
+    if not rec.samples:
+        fail("the learner drew no sample from the ring")
+    for slot, at, sample in rec.samples:
+        newest = at - 1 - (at - 1 - slot) % cap
+        if (newest < at - cap).any():
+            fail("a sample's slot holds no position")
+        for name, w in zip(fields, written):
+            if not np.array_equal(getattr(sample, name), w[newest]):
+                fail(f"a sample's {name} is not the newest position of its slot")
+    return {"written": total, "capacity": cap, "samples": len(rec.samples)}
+
+
+def arena_games(rec: GameRecorder, cap: int) -> list:
+    """The arena's games, one a row: its actions up to its end, the states
+    before them, how it ended and its last state. Fails unless every row
+    carries its state from one ply to the next, and every ply of a game that
+    had ended left its state unchanged and set ``info.invalid``. Returns
+    the games and the count of those frozen steps."""
+    steps = rec.steps["arena"]
+    B = len(steps[0]["actions"])
+    games = [{"row": r, "actions": [], "befores": [], "last": None, "how": "truncated"}
+             for r in range(B)]
+    frozen = 0
+    for p, st in enumerate(steps):
+        before, after, info = st["before"], st["after"], st["info"]
+        for r, g in enumerate(games):
+            b, a = row(before, r), row(after, r)
+            if p and not same_row(b, row(steps[p - 1]["after"], r)):
+                fail(f"arena ply {p} row {r}: the state is not the row's last one")
+            if b["terminated"]:
+                frozen += 1
+                if not same_row(a, b) or not info["invalid"][r]:
+                    fail(f"arena ply {p} row {r}: the step of an ended game changed its state "
+                         "or did not set info.invalid")
+                continue
+            g["actions"].append(int(st["actions"][r]))
+            g["befores"].append(b)
+            g["last"] = a
+            if a["terminated"]:
+                g["how"] = END_REASONS[int(a["reason"])]
+    if len(steps) > cap:
+        fail(f"the arena played {len(steps)} plies, past its cap of {cap}")
+    outcomes = tuple(int(g["last"]["result"]) if g["last"]["terminated"] else -2 for g in games)
+    if rec.arena_results[-1].outcomes != outcomes:
+        fail(f"the arena's outcomes {rec.arena_results[-1].outcomes} are not its games' "
+             f"{outcomes}")
+    return games, frozen
+
+
+def oracle_replay(job):
+    """Replays one game through the port's ``core/oracle.py`` from the start
+    FEN: ``job`` is ``(preset, actions)``. Every action must be a legal play
+    there. Returns, per ply, the position before the play (board, side to
+    move, the mover's repetition count) and the state after the last play
+    in the env's terms, or ``{"error": ...}``. A module-level function, so
+    that a process pool can run it."""
+    from alphazeroforhnefatafl_tpu_torch.core import actions as A
+    from alphazeroforhnefatafl_tpu_torch.core import oracle
+    from alphazeroforhnefatafl_tpu_torch.core.fen import board_from_fen
+    from alphazeroforhnefatafl_tpu_torch.core.rules import PRESETS
+
+    preset, actions = job
+    rules, board_fen = PRESETS[preset]
+    n = board_from_fen(board_fen).shape[0]
+    logic = oracle.GameLogic(rules, n)
+    state = oracle.GameState.from_fen(board_fen, rules.starting_side)
+    boards, sides, reps = [], [], []
+    for i, action in enumerate(actions):
+        if not state.ongoing:
+            return {"error": f"ply {i}: a play after the game ended"}
+        side = int(state.side_to_play)
+        r = state.repetitions
+        boards.append(state.board.copy())
+        sides.append(side)
+        reps.append(r.defender_reps if side else r.attacker_reps)
+        try:
+            state, _, _ = logic.do_play(oracle.Play.from_tiles(*A.decode_to_tiles(n, action)),
+                                        state)
+        except oracle.InvalidPlayError as e:
+            return {"error": f"ply {i}: {e}"}
+    r, o = state.repetitions, state.outcome
+    if o is None:
+        result, reason = -1, -1
+    elif o.winner is None:
+        result, reason = 2, 16 + int(o.draw_reason)
+    else:
+        result, reason = int(o.winner), int(o.win_reason)
+    return {"boards": np.stack(boards), "sides": np.array(sides), "reps": np.array(reps),
+            "final": {"board": state.board, "reps": np.array([r.attacker_reps, r.defender_reps]),
+                      "mid_pair": np.array([r.attacker_mid_pair, r.defender_mid_pair]),
+                      "plays_since_capture": state.plays_since_capture, "turn": state.turn,
+                      "side_to_play": int(state.side_to_play), "result": result,
+                      "reason": reason}}
+
+
+def check_oracle(preset: str, games: list, what: str, processes: int = 1) -> int:
+    """Every game of ``games`` replayed through the oracle (in ``processes``
+    worker processes): every action legal, every position before a move the
+    env's, and the last state's board, side to move, result, reason,
+    repetition counts and pairs, plays since a capture and turn the env's.
+    Returns the plies replayed."""
+    jobs = [(preset, g["actions"]) for g in games]
+    if processes > 1:
+        import multiprocessing
+
+        with multiprocessing.get_context("spawn").Pool(processes) as pool:
+            out = pool.map(oracle_replay, jobs, chunksize=4)
+    else:
+        out = [oracle_replay(job) for job in jobs]
+    for i, (g, got) in enumerate(zip(games, out)):
+        name = f"{what} game {i} (row {g['row']}, ended by {g['how']})"
+        if "error" in got:
+            fail(f"{name}: the oracle refuses its transcript: {got['error']}")
+        b = g["befores"]
+        if not (np.array_equal(got["boards"], np.stack([x["board"] for x in b]))
+                and np.array_equal(got["sides"], [x["side_to_play"] for x in b])
+                and np.array_equal(got["reps"], [x["reps"][x["side_to_play"]] for x in b])):
+            fail(f"{name}: a position before a move differs from the oracle's")
+        for field, want in got["final"].items():
+            if not np.array_equal(g["last"][field], want):
+                fail(f"{name}: the last state's {field} is {g['last'][field]}, the oracle's "
+                     f"{want}")
+    return sum(len(g["actions"]) for g in games)
+
+
+def check_recorded_kernels(rec: GameRecorder, checker: KernelCheck, device,
+                           rows: int = 4096) -> dict:
+    """Both kernels against their plain versions, bit for bit, on the
+    recorded inputs of every self-play move and arena ply from
+    :data:`LATE_PLY` on (ended arena games among them) and of every sampled
+    wave: kernel 2 field by field and kernel 1 on the same states
+    (:class:`KernelCheck`), and the step the run took (the state after and
+    the info) equal to the env's step of the same inputs through the kernel
+    now. A game's step depends on its own row alone, so consecutive
+    recorded steps of a path are checked together, up to ``rows`` rows a
+    call. Returns the steps checked by path."""
+    import torch
+
+    def cat(dicts):
+        return {f: np.concatenate([d[f] for d in dicts]) for f in dicts[0]}
+
+    checked = {}
+    for path, steps, first in (("selfplay", rec.steps["selfplay"], LATE_PLY),
+                               ("arena", rec.steps["arena"], LATE_PLY),
+                               ("wave", rec.waves, 0)):
+        env, todo = rec.env, steps[first:]
+        per = max(1, rows // len(todo[0]["actions"])) if todo else 1
+        for i in range(0, len(todo), per):
+            part = todo[i:i + per]
+            what = f"recorded {path} steps {first + i}-{first + i + len(part) - 1}"
+            states = device_state(cat([st["before"] for st in part]), device)
+            actions = torch.as_tensor(np.concatenate([st["actions"] for st in part]),
+                                      device=device)
+            checker.check(env, states, actions, what)
+            new, info = env.step_many(states, actions)
+            want = cat([st["info"] for st in part])
+            if not same_row(host_state(new), cat([st["after"] for st in part])) or not all(
+                    np.array_equal(getattr(info, f).cpu().numpy(), want[f])
+                    for f in INFO_FIELDS):
+                fail(f"{what}: the run's step differs from the same step taken again")
+        checked[path] = len(todo)
+    return checked
+
+
+def check_launches(rec: GameRecorder, batches: dict, cfg) -> dict:
+    """The launches of the run by batch, exactly: kernel 1 once a self-play
+    move (at the self-play batch), once a learner step (at the learner's
+    batch) and once an arena ply (at the arena's games); kernel 2 ``sims /
+    L`` times a move at ``L`` rows a game and once at the batch, and
+    ``arena_sims / L`` times a ply and once."""
+    moves, plies, steps = (len(rec.steps["selfplay"]), len(rec.steps["arena"]),
+                           len(rec.train_metrics))
+    B, G, L = cfg.selfplay.batch_size, cfg.arena_games, cfg.mcts.leaves_per_wave
+    want = {"legal_mask": {}, "step": {}}
+
+    def add(kernel, batch, count):
+        if count:
+            want[kernel][str(batch)] = want[kernel].get(str(batch), 0) + count
+
+    add("legal_mask", B, moves)
+    add("legal_mask", cfg.train_batch_size, steps)
+    add("legal_mask", G, plies)
+    add("step", B * L, moves * (cfg.mcts.num_simulations // L))
+    add("step", B, moves)
+    add("step", G * L, plies * (cfg.arena_sims // L))
+    add("step", G, plies)
+    if batches != want:
+        fail(f"whole games launched {batches} by batch, not {want}")
+    return {k: sum(v.values()) for k, v in batches.items()}
+
+
+def profile_move(rec: GameRecorder, move: int) -> dict:
+    """``torch.profiler`` over one self-play move of the recorded batch at
+    batched move ``move`` (after a warm move from it): the card's busy
+    milliseconds (the union of its kernels and copies), their share of the
+    profiled move's wall time and of the median of three unprofiled moves
+    (the profiler slows the host, so the first share understates what the
+    card does in a move without it), and the two ported kernels' share of
+    the card's time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from alphazeroforhnefatafl_tpu_torch.scripts.analyze_trace import union_ms
+
+    actor = rec.actors[0]
+    st = rec.steps["selfplay"][move]["before"]
+    states = device_state(st, actor.device)
+    temps = torch.as_tensor((st["turn"] < actor.cfg.temp_threshold).astype(np.float32),
+                            device=actor.device)
+    gen = torch.Generator(device=actor.device).manual_seed(SEED)
+    actor.move(states, temps, gen)
+    plain_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actor.move(states, temps, gen)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        actor.move(states, temps, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+    if not on_card:
+        return {"busy_share": "not measured", "kernels_share": "not measured"}
+    spans = [(e.time_range.start, e.time_range.end) for e in on_card]
+    lo, hi = min(s for s, _ in spans), max(e for _, e in spans)
+    busy_ms = union_ms(spans, lo, hi)
+    total = sum(e.time_range.elapsed_us() for e in on_card)
+    ours = {k: sum(e.time_range.elapsed_us() for e in on_card if k in e.name)
+            for k in ("tafl_legal_mask_kernel", "tafl_step_kernel")}
+    move_ms = float(np.median(plain_ms))
+    return {"move": move, "profiled_ms": wall_ms, "move_ms": move_ms, "busy_ms": busy_ms,
+            "busy_share_profiled": busy_ms / wall_ms, "busy_share": busy_ms / move_ms,
+            "events": len(on_card),
+            "kernels_share": {k: v / total for k, v in ours.items()}}
+
+
+def resign_threshold_from(rec: GameRecorder, min_moves: int) -> float:
+    """A threshold at which a net resigns: minus the median of the root
+    values that the movers of the recorded self-play saw from move
+    ``min_moves`` on, so that half of those positions lie below it."""
+    values = np.concatenate([v[t >= min_moves] for v, t in rec.root_values])
+    return float(-np.median(values))
+
+
+def end_split(games: list) -> dict:
+    split = dict.fromkeys(END_NAMES, 0)
+    for g in games:
+        split[g["how"]] += 1
+    return split
+
+
+def checked_selfplay(rec: GameRecorder, cap: int):
+    """The recorded self-play's games (:func:`selfplay_games`), held to the
+    actor's own counts and to their replay writes
+    (:func:`check_selfplay_replay`). Returns the games, how they ended and
+    how many were decided."""
+    games = selfplay_games(rec, cap)
+    split = end_split(games)
+    stats = rec.stats[0]
+    if (stats.games, stats.resigned, stats.truncated) != (
+            len(games), split["resigned"], split["truncated"]):
+        fail(f"self-play counted {stats.games} games, {stats.resigned} resigned and "
+             f"{stats.truncated} truncated; its moves ended {len(games)}: {split}")
+    return games, split, check_selfplay_replay(rec, games)["decided"]
+
+
+def phase_whole_games(device, card, checker, phase5_rate):
+    """Phase 19: the flagship record's iteration through ``train_run.main``,
+    every game played to its end, recorded and checked (see the module's
+    docstring); then, where the record's threshold fired no resignation, a
+    second self-play at a lower one. Returns the launches of the two runs."""
+    import os
+
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.scripts import train_run
+    from alphazeroforhnefatafl_tpu_torch.train.loop import gate_passes
+    from alphazeroforhnefatafl_tpu_torch.train.replay import ReplayBuffer
+    from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor
+
+    root = Path(__file__).resolve().parent
+    rec_line = json.loads((root / "runs" / "copenhagen_r4ab_puct" / "config.jsonl")
+                          .read_text().splitlines()[-1])
+    rec_line.update(WHOLE_GAME_CUTS, name="whole_r4ab", cpu=torch.device(device).type == "cpu")
+    t_phase = time.perf_counter()
+    rec = GameRecorder()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            with rec.installed():
+                zero_launches()
+                before = read_batches()
+                rc, out, err = captured(train_run.main, train_run.record_argv(rec_line))
+                _sync(device)
+                batches = batches_since(before)
+            if rc != 0:
+                fail(f"phase 19 train_run returned {rc}; stderr:\n{err}")
+            metrics = json.loads((Path(tmp) / "runs" / "whole_r4ab" / "metrics.jsonl")
+                                 .read_text().splitlines()[-1])
+        finally:
+            os.chdir(cwd)
+    run_s = time.perf_counter() - t_phase
+    cfg = rec.loop_config
+    launches = check_launches(rec, batches, cfg)
+    sp_cfg = cfg.selfplay
+
+    # (a) every game ends, rows restart mid-batch; (d) the replay.
+    games, split, decided = checked_selfplay(rec, sp_cfg.max_game_len)
+    stats = rec.stats[0]
+    starts = sorted({g["first_move"] for g in games})
+    restarts = sum(g["first_move"] > 0 for g in games)
+    if restarts == 0 or len(starts) < 2:
+        fail(f"no self-play row restarted while the others played on (starts {starts})")
+    if decided == 0:
+        fail(f"no self-play game was decided: {split}")
+    ring = check_ring(rec)
+
+    # (b) the oracle; (c) the kernels on the late and ended steps.
+    a_games, frozen = arena_games(rec, cfg.arena_max_game_len)
+    workers = max(1, min(8, (os.cpu_count() or 1) - 1))
+    t0 = time.perf_counter()
+    plies = check_oracle(cfg.preset, games, "self-play", workers)
+    plies += check_oracle(cfg.preset, a_games, "arena", workers)
+    oracle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kernel_checked = check_recorded_kernels(rec, checker, device)
+    kernel_s = time.perf_counter() - t0
+
+    # (e) the learner; (f) the gate.
+    losses = rec.train_metrics
+    if len(losses) != cfg.train_steps_per_iteration or not all(
+            np.isfinite(list(m.values())).all() for m in losses):
+        fail(f"the learner took {len(losses)} steps with metrics {losses}")
+    if not all(m["value_loss"] > 0 for m in losses) or not any(
+            m["decided_targets"] for m in losses):
+        fail(f"the learner fitted no decided value target: {losses}")
+    result = rec.arena_results[0]
+    if result.decisive_games < cfg.gate_min_decisive:
+        fail(f"the arena reached {result.decisive_games} decisive games, fewer than "
+             f"{cfg.gate_min_decisive}: raise its simulations toward the record's 64 "
+             f"({result.as_dict()})")
+    passed = gate_passes(cfg, result)
+    if metrics.get("arena/promoted") != float(passed):
+        fail(f"the loop promoted {metrics.get('arena/promoted')}, gate_passes says {passed}")
+
+    late = next((m for m, st in enumerate(rec.steps["selfplay"])
+                 if m >= LATE_PLY and st["before"]["turn"].max() >= LATE_PLY), None)
+    if late is None:
+        fail(f"self-play made no move past move {LATE_PLY}")
+    profile = profile_move(rec, late)
+
+    # Resignation, on the card: under the record's threshold, else lower.
+    resign = {"threshold": sp_cfg.resign_threshold, "games": stats.games,
+              "resigned": stats.resigned, "resign_fp_rate": stats.as_dict()["resign_fp_rate"],
+              "resign_checked": stats.resign_checked, "launches": None}
+    if stats.resigned == 0:
+        threshold = resign_threshold_from(rec, sp_cfg.resign_min_moves)
+        second = GameRecorder()
+        actor = rec.actors[0]
+        small = SelfPlayActor(actor.env, actor.evaluate, actor.mcts.config,
+                              dataclasses.replace(sp_cfg, batch_size=RESIGN_GAMES,
+                                                  resign_threshold=threshold))
+        with second.installed():
+            zero_launches()
+            before = read_batches()
+            small.play(ReplayBuffer(actor.env, RESIGN_GAMES * sp_cfg.max_game_len,
+                                    sp_cfg.policy_k),
+                       torch.Generator(device=device).manual_seed(SEED), RESIGN_GAMES)
+            _sync(device)
+            r_batches = batches_since(before)
+        r_stats = second.stats[0]
+        _, r_split, _ = checked_selfplay(second, sp_cfg.max_game_len)
+        L, sims = cfg.mcts.leaves_per_wave, cfg.mcts.num_simulations
+        moves = len(second.steps["selfplay"])
+        want = {"legal_mask": {str(RESIGN_GAMES): moves},
+                "step": {str(RESIGN_GAMES * L): moves * (sims // L), str(RESIGN_GAMES): moves}}
+        if r_batches != want:
+            fail(f"the resignation run launched {r_batches} by batch, not {want}")
+        if r_stats.resigned == 0:
+            fail(f"no game resigned at threshold {threshold} either")
+        resign = {"threshold": threshold, "games": r_stats.games, "resigned": r_stats.resigned,
+                  "resign_fp_rate": r_stats.as_dict()["resign_fp_rate"],
+                  "resign_checked": r_stats.resign_checked, "split": r_split,
+                  "seconds": second.seconds["selfplay"],
+                  "launches": {k: sum(v.values()) for k, v in r_batches.items()}}
+    phase_s = time.perf_counter() - t_phase
+
+    positions = metrics["selfplay/positions"]
+    summary = {
+        "games": len(games), "avg_length": stats.length_sum / stats.games, "split": split,
+        "decided": decided, "restarts": restarts, "start_moves": len(starts),
+        "selfplay_s": metrics["time/selfplay_s"], "positions": positions,
+        "positions_per_s": positions / metrics["time/selfplay_s"],
+        "phase5_positions_per_s": phase5_rate, "moves": len(rec.steps["selfplay"]),
+        "ring": ring, "train_s": metrics["time/train_s"],
+        "value_loss": [m["value_loss"] for m in losses],
+        "arena_s": rec.seconds["arena"], "arena_plies": len(rec.steps["arena"]),
+        "arena_s_per_ply": rec.seconds["arena"] / len(rec.steps["arena"]),
+        "arena_decisive": result.decisive_games, "arena": result.as_dict(),
+        "arena_split": end_split(a_games),
+        "arena_frozen_steps": frozen, "promoted": passed,
+        "oracle_games": len(games) + len(a_games), "oracle_plies": plies,
+        "oracle_s": oracle_s, "kernel_checked_steps": kernel_checked, "kernel_check_s": kernel_s,
+        "resignation": resign, "profile": profile, "launches": launches,
+        "train_run_s": run_s, "phase_s": phase_s,
+    }
+    print(card, flush=True)
+    print(json.dumps({"whole_games": summary}), flush=True)
+    print(f"whole games on {card}: {len(games)} self-play games to their end "
+          f"({summary['avg_length']:.1f} plies on average; {split}), {restarts} restarted "
+          f"mid-batch, {decided} decided; the ring of {ring['capacity']} took "
+          f"{ring['written']} positions; the arena ended {result.decisive_games} decisive games "
+          f"in {len(rec.steps['arena'])} plies, promoted {passed}; the oracle agrees on "
+          f"{len(games) + len(a_games)} games ({plies} plies); both kernels bit-exact on "
+          f"{kernel_checked} recorded steps; phase {phase_s:.1f} s", flush=True)
+    out = {"whole_games": launches}
+    if resign["launches"] is not None:
+        out["whole_games_resign"] = resign["launches"]
+    return out
+
+
 def main(argv=None) -> int:
     """All the phases, and phase 18 where the process sees two or more
     cards; with ``--every-card``, only the build and
@@ -2431,6 +3235,9 @@ def main(argv=None) -> int:
         multirank_launches.update(phase_across_cards(device, card, cards))
     else:
         print(f"phase 18 (across cards) not run: this process sees {cards} card", flush=True)
+
+    # Phase 19: the flagship record's iteration, every game to its end.
+    whole_launches = phase_whole_games(device, card, checker, serial["rate"])
     by_path = {
         name: {
             "selfplay": serial["launches"][name] + serial_again["launches"][name]
@@ -2449,6 +3256,7 @@ def main(argv=None) -> int:
             "profile_wave": profile_launches[name],
             **{driver: counts[name] for driver, counts in driver_launches.items()},
             **{path: counts[name] for path, counts in multirank_launches.items()},
+            **{path: counts[name] for path, counts in whole_launches.items()},
         }
         for name in ("legal_mask", "step")
     }

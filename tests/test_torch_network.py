@@ -67,3 +67,32 @@ def test_bf16_trunk_keeps_float32_heads():
     logits, value = net(torch.rand(3, 7, 7, 6))
     assert logits.dtype == torch.float32 and value.dtype == torch.float32
     assert torch.isfinite(logits).all() and (value.abs() <= 1).all()
+
+
+@pytest.mark.parametrize("norm", ["group", "none"])
+def test_bf16_trunk_matches_flax_bf16(norm):
+    """The port's bf16-trunk net against the Flax net at ``dtype=bfloat16``
+    on the same converted weights. Tolerance tied to JAX's own bf16 error:
+    the port's distance from JAX's bf16 output is at most twice JAX's bf16
+    distance from its float32 output, for logits and value; the policy
+    argmax agrees row by row."""
+    n = 11
+    _, params = _flax_params(n, norm, seed=5)
+    obs = jnp.asarray(np.random.RandomState(5).rand(16, n, n, 6).astype(np.float32))
+    f32_logits, f32_value = FlaxNet(board_size=n, channels=16, blocks=2, dtype=jnp.float32,
+                                    norm=norm).apply(params, obs)
+    bf_logits, bf_value = FlaxNet(board_size=n, channels=16, blocks=2, dtype=jnp.bfloat16,
+                                  norm=norm).apply(params, obs)
+    tnet = make_network(n, channels=16, blocks=2, norm=norm, dtype=torch.bfloat16)
+    tnet.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
+    with torch.no_grad():
+        logits, value = tnet(torch.from_numpy(np.asarray(obs)))
+    for name, got, want, ref in (("logits", logits, bf_logits, f32_logits),
+                                 ("value", value, bf_value, f32_value)):
+        got = got.float().numpy()
+        want, ref = np.asarray(want, np.float32), np.asarray(ref, np.float32)
+        jax_err = np.abs(want - ref).max()
+        assert jax_err > 0, name
+        assert np.abs(got - want).max() <= 2 * jax_err, name
+    np.testing.assert_array_equal(logits.float().numpy().argmax(1),
+                                  np.asarray(bf_logits, np.float32).argmax(1))
