@@ -10,8 +10,10 @@ table. Prints the same three tables as the JAX script (tracks, op families,
 top ops), then the kernels no family names, and, when the trace holds
 profile_wave's search region, the share of that region's host window in
 which the card was busy: the union of the device events' intervals, not
-their sum. A trace with no device events (one taken on the CPU) is reported
-as such::
+their sum, and the card's idle time there put down to the innermost host
+span (``mcts/traverse``, ``mcts/level_sync``, ...) the host was in at each
+idle gap's middle. A trace with no device events (one taken on the CPU) is
+reported as such::
 
     python -m alphazeroforhnefatafl_tpu_torch.scripts.analyze_trace trace [--top 40]
 """
@@ -98,10 +100,41 @@ def union_ms(intervals, lo: float, hi: float) -> float:
     return covered / 1e3
 
 
+def idle_by_span(intervals, spans, lo: float, hi: float):
+    """The card's idle gaps in ``[lo, hi]`` (the complement of the union of
+    the device ``intervals``), each put down to the innermost of the host
+    ``spans`` (``(name, start, end)``, nested as one thread opens them) that
+    holds the gap's middle, or to ``"outside any span"``: ``{label: (ms,
+    gaps)}``, the most idle label first."""
+    gaps, reach = [], lo
+    for start, end in sorted(intervals):
+        if start > reach and reach < hi:
+            gaps.append((reach, min(start, hi)))
+        reach = max(reach, end)
+    if reach < hi:
+        gaps.append((reach, hi))
+    spans = sorted(spans, key=lambda h: (h[1], -h[2]))
+    out, open_, k = {}, [], 0
+    for start, end in sorted(gaps, key=lambda g: g[0] + g[1]):
+        mid = (start + end) / 2
+        while k < len(spans) and spans[k][1] <= mid:
+            while open_ and open_[-1][2] < spans[k][1]:
+                open_.pop()
+            open_.append(spans[k])
+            k += 1
+        while open_ and open_[-1][2] < mid:
+            open_.pop()
+        label = open_[-1][0] if open_ else "outside any span"
+        ms, n = out.get(label, (0.0, 0))
+        out[label] = (ms + (end - start) / 1e3, n + 1)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][0]))
+
+
 def analyze(events, track_regex: str, region: str = SEARCH_REGION) -> dict:
     """Device time (ms) by track, family and op name, with the op counts;
     the names that fall into ``other``; and, when the trace holds a host
-    ``region``, its window and the card's busy time and share within it."""
+    ``region``, its window, the card's busy time and share within it, and
+    its idle time by the innermost host span (:func:`idle_by_span`)."""
     proc, thread = {}, {}
     for e in events:
         if e.get("ph") == "M":
@@ -113,13 +146,17 @@ def analyze(events, track_regex: str, region: str = SEARCH_REGION) -> dict:
 
     by_track, by_fam, by_name = (collections.Counter() for _ in range(3))
     count_name, other = collections.Counter(), collections.Counter()
-    intervals, window, off_track = [], None, 0
+    intervals, window, off_track, spans = [], None, 0, []
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
         cat = e.get("cat", "")
-        if cat == "user_annotation" and e.get("name") == region:
-            window = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if cat == "user_annotation":
+            start = float(e["ts"])
+            if e.get("name") == region:
+                window = (start, start + float(e["dur"]))
+            else:
+                spans.append((e.get("name", "?"), start, start + float(e["dur"])))
         if cat not in DEVICE_CATS:
             continue
         p_name = proc.get(e.get("pid"), "?")
@@ -149,12 +186,14 @@ def analyze(events, track_regex: str, region: str = SEARCH_REGION) -> dict:
         "window_ms": None,
         "busy_ms": None,
         "busy_share": None,
+        "idle_by_span": None,
     }
     if window is not None:
         lo, hi = window
         busy = union_ms(intervals, lo, hi)
         out.update(window_ms=(hi - lo) / 1e3, busy_ms=busy,
-                   busy_share=busy / ((hi - lo) / 1e3) if hi > lo else None)
+                   busy_share=busy / ((hi - lo) / 1e3) if hi > lo else None,
+                   idle_by_span=idle_by_span(intervals, spans, lo, hi))
     return out
 
 
@@ -202,6 +241,11 @@ def main(argv=None) -> int:
         print(f"\n{SEARCH_REGION}: host window {s['window_ms']:.1f} ms, card busy "
               f"{s['busy_ms']:.1f} ms of it ({100 * s['busy_share']:.1f}%; the union of "
               "the device events, not their sum)")
+        idle = s["window_ms"] - s["busy_ms"]
+        print(f"\n== card idle in {SEARCH_REGION} by innermost host span ==")
+        for label, (ms, gaps) in list(s["idle_by_span"].items())[: a.top]:
+            share = 100 * ms / idle if idle > 0 else 0.0
+            print(f"{ms:10.3f} ms  {share:5.1f}%  x{gaps:<6} {label}")
     return 0
 
 

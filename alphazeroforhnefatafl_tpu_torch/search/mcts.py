@@ -27,6 +27,7 @@ from typing import Callable, Optional
 import torch
 
 from ..core.env import EnvState, TaflEnv
+from ..utils.profiling import span
 
 EPS = 1e-8  # src/mcts.py:6
 NEG_INF = -1e30
@@ -323,7 +324,10 @@ class MCTS:
             node = torch.where(live & descend, child, node)
             depth = depth + record.long()
             done = done | is_leaf | hit_edge | capped
-            if bool(done.all()):
+            # The walk's one host sync: every level waits for the card here.
+            with span("mcts/level_sync"):
+                finished = bool(done.all())
+            if finished:
                 break
         return dict(
             node=node, depth=depth, path_nodes=path_nodes, path_slots=path_slots,
@@ -349,77 +353,84 @@ class MCTS:
         dev = tree.expanded.device
         ts = []
         for _ in range(L):
-            ts.append(self._traverse(tree, forced_root_slot, prev=ts))
+            with span("mcts/traverse"):
+                ts.append(self._traverse(tree, forced_root_slot, prev=ts))
 
         def stacked(name):
             return torch.stack([t[name] for t in ts], 1)
 
-        parent, slot = stacked("leaf_parent"), stacked("leaf_slot")  # [B, L]
-        stop_node, at_node_leaf = stacked("node"), stacked("at_node_leaf")
-        depth = stacked("depth")
-        path_nodes, path_slots = stacked("path_nodes"), stacked("path_slots")  # [B, L, D]
+        with span("mcts/leaf_step"):
+            parent, slot = stacked("leaf_parent"), stacked("leaf_slot")  # [B, L]
+            stop_node, at_node_leaf = stacked("node"), stacked("at_node_leaf")
+            depth = stacked("depth")
+            path_nodes, path_slots = stacked("path_nodes"), stacked("path_slots")  # [B, L, D]
 
-        # Only the first claimant of an unmaterialized edge links and expands.
-        # (A leaf demoted at j cannot hide a collision: l's collision is then
-        # with j's own earlier claimant.)
-        make_new = ~at_node_leaf
-        for l in range(1, L):
-            dup = torch.zeros(B, dtype=torch.bool, device=dev)
-            for j in range(l):
-                dup |= make_new[:, j] & (parent[:, j] == parent[:, l]) & (slot[:, j] == slot[:, l])
-            make_new[:, l] &= ~dup
+            # Only the first claimant of an unmaterialized edge links and
+            # expands. (A leaf demoted at j cannot hide a collision: l's
+            # collision is then with j's own earlier claimant.)
+            make_new = ~at_node_leaf
+            for l in range(1, L):
+                dup = torch.zeros(B, dtype=torch.bool, device=dev)
+                for j in range(l):
+                    dup |= (make_new[:, j] & (parent[:, j] == parent[:, l])
+                            & (slot[:, j] == slot[:, l]))
+                make_new[:, l] &= ~dup
 
-        # One state read, env step and forward over [B, L] -> B*L.
-        rows = torch.arange(B, device=dev).repeat_interleave(L)
-        read_node = torch.where(at_node_leaf, stop_node, parent).reshape(-1)
-        parent_state = tree.state.map(lambda x: x[rows, read_node])
-        actions = tree.child_action[rows, parent.reshape(-1), slot.reshape(-1)].clamp(min=0)
-        child, info = self.env.step_many(parent_state, actions)
+            # One state read, env step and forward over [B, L] -> B*L.
+            rows = torch.arange(B, device=dev).repeat_interleave(L)
+            read_node = torch.where(at_node_leaf, stop_node, parent).reshape(-1)
+            parent_state = tree.state.map(lambda x: x[rows, read_node])
+            actions = tree.child_action[rows, parent.reshape(-1), slot.reshape(-1)].clamp(min=0)
+            child, info = self.env.step_many(parent_state, actions)
 
-        # Materialize the stepped children in slots idx0 .. idx0 + L - 1.
-        idx0 = sim0 + 1
-        span = slice(idx0, idx0 + L)
+            # Materialize the stepped children in slots idx0 .. idx0 + L - 1.
+            idx0 = sim0 + 1
+            slots = slice(idx0, idx0 + L)
 
-        def write(buf, val, mask):
-            """``buf[:, idx0 + l] = val[b * L + l]`` where ``mask[b, l]``."""
-            val = val.reshape((B, L) + val.shape[1:])
-            m = mask.reshape(mask.shape + (1,) * (val.dim() - 2))
-            buf[:, span] = torch.where(m, val, buf[:, span])
+            def write(buf, val, mask):
+                """``buf[:, idx0 + l] = val[b * L + l]`` where ``mask[b, l]``."""
+                val = val.reshape((B, L) + val.shape[1:])
+                m = mask.reshape(mask.shape + (1,) * (val.dim() - 2))
+                buf[:, slots] = torch.where(m, val, buf[:, slots])
 
-        for f in dataclasses.fields(child):
-            write(getattr(tree.state, f.name), getattr(child, f.name), make_new)
-        term, tvals = child.terminated, terminal_value(child)
-        write(tree.terminal, term, make_new)
-        write(tree.terminal_value, tvals, make_new)
-        term, tvals = term.reshape(B, L), tvals.reshape(B, L)
-        # Unmaterialized links hold -1 and duplicates were demoted, so adding
-        # idx + 1 at each claimed (parent, slot) sets the link; the others add 0.
-        idxs = torch.arange(idx0, idx0 + L, device=dev, dtype=torch.int32)
-        tree.child_node.view(B, -1).scatter_add_(
-            1, parent * K + slot, torch.where(make_new, idxs[None, :] + 1, 0).to(torch.int32)
-        )
+            for f in dataclasses.fields(child):
+                write(getattr(tree.state, f.name), getattr(child, f.name), make_new)
+            term, tvals = child.terminated, terminal_value(child)
+            write(tree.terminal, term, make_new)
+            write(tree.terminal_value, tvals, make_new)
+            term, tvals = term.reshape(B, L), tvals.reshape(B, L)
+            # Unmaterialized links hold -1 and duplicates were demoted, so
+            # adding idx + 1 at each claimed (parent, slot) sets the link; the
+            # others add 0.
+            idxs = torch.arange(idx0, idx0 + L, device=dev, dtype=torch.int32)
+            tree.child_node.view(B, -1).scatter_add_(
+                1, parent * K + slot, torch.where(make_new, idxs[None, :] + 1, 0).to(torch.int32)
+            )
 
-        # Terminal flags come from the stepped child (fresh or duplicate
-        # leaves) or the stored node (at_node_leaf), not from the buffers
-        # just written: a duplicate's slot was never written.
-        stop = stop_node.reshape(-1)
-        leaf_terminal = torch.where(at_node_leaf, tree.terminal[rows, stop].reshape(B, L), term)
-        leaf_tv = torch.where(at_node_leaf, tree.terminal_value[rows, stop].reshape(B, L), tvals)
+            # Terminal flags come from the stepped child (fresh or duplicate
+            # leaves) or the stored node (at_node_leaf), not from the buffers
+            # just written: a duplicate's slot was never written.
+            stop = stop_node.reshape(-1)
+            leaf_terminal = torch.where(at_node_leaf, tree.terminal[rows, stop].reshape(B, L), term)
+            leaf_tv = torch.where(at_node_leaf, tree.terminal_value[rows, stop].reshape(B, L),
+                                  tvals)
 
-        anl = at_node_leaf.reshape(-1)
-        leaf_state = child.replace(
-            board=torch.where(anl[:, None, None], parent_state.board, child.board),
-            side_to_play=torch.where(anl, parent_state.side_to_play, child.side_to_play),
-            reps=torch.where(anl[:, None], parent_state.reps, child.reps),
-        )
-        logits, value = self.evaluate(self.env.observe(leaf_state))
-        priors, fell_back = _masked_priors_fb(logits.float(), info.legal_mask)
-        top_p, top_a = _top_k(priors, K)
-        has_mass = top_p > 0
-        expand = make_new & ~term
-        write(tree.expanded, torch.ones_like(anl), expand)
-        write(tree.child_action, torch.where(has_mass, top_a, -1).to(torch.int32), expand)
-        write(tree.child_prior, torch.where(has_mass, top_p, 0.0), expand)
+            anl = at_node_leaf.reshape(-1)
+            leaf_state = child.replace(
+                board=torch.where(anl[:, None, None], parent_state.board, child.board),
+                side_to_play=torch.where(anl, parent_state.side_to_play, child.side_to_play),
+                reps=torch.where(anl[:, None], parent_state.reps, child.reps),
+            )
+        with span("mcts/evaluate"):
+            logits, value = self.evaluate(self.env.observe(leaf_state))
+        with span("mcts/expand"):
+            priors, fell_back = _masked_priors_fb(logits.float(), info.legal_mask)
+            top_p, top_a = _top_k(priors, K)
+            has_mass = top_p > 0
+            expand = make_new & ~term
+            write(tree.expanded, torch.ones_like(anl), expand)
+            write(tree.child_action, torch.where(has_mass, top_a, -1).to(torch.int32), expand)
+            write(tree.child_prior, torch.where(has_mass, top_p, 0.0), expand)
 
         # One negamax backup over all L paths (src/mcts.py:125-136): path
         # position j receives v * (-1)^(depth - j); off-path entries add 0 at
@@ -429,25 +440,27 @@ class MCTS:
         # scattering the paths straight into child_W would make it (W + a) +
         # b. So sum the wave in a zeroed buffer, leaf by leaf (no edge
         # repeats within one path), and add once.
-        v = torch.where(leaf_terminal, leaf_tv, value.float().reshape(B, L))
-        j = torch.arange(D, device=dev)[None, None, :]
-        on_path = j < depth[:, :, None]  # [B, L, D]
-        sign_v = torch.where(
-            (depth[:, :, None] - j) % 2 == 1, -v[:, :, None], v[:, :, None]
-        ) * on_path
-        flat = path_nodes.clamp(min=0) * K + path_slots.clamp(min=0)
-        child_W = tree.child_W.view(B, -1)
-        w_add = child_W if L == 1 else torch.zeros_like(child_W)
-        for l in range(L):
-            w_add.scatter_add_(1, flat[:, l], sign_v[:, l])
-        if L > 1:
-            child_W += w_add
-        tree.child_N.view(B, -1).scatter_add_(
-            1, flat.reshape(B, -1), on_path.reshape(B, -1).to(torch.int32)
-        )
-        consumed = expand  # priors are consumed only at fresh expansions
-        fb = (fell_back.reshape(B, L) & consumed).sum(1, dtype=torch.int32)
-        return fb, consumed.sum(1, dtype=torch.int32)
+        with span("mcts/backup"):
+            v = torch.where(leaf_terminal, leaf_tv, value.float().reshape(B, L))
+            j = torch.arange(D, device=dev)[None, None, :]
+            on_path = j < depth[:, :, None]  # [B, L, D]
+            sign_v = torch.where(
+                (depth[:, :, None] - j) % 2 == 1, -v[:, :, None], v[:, :, None]
+            ) * on_path
+            flat = path_nodes.clamp(min=0) * K + path_slots.clamp(min=0)
+            child_W = tree.child_W.view(B, -1)
+            w_add = child_W if L == 1 else torch.zeros_like(child_W)
+            for l in range(L):
+                w_add.scatter_add_(1, flat[:, l], sign_v[:, l])
+            if L > 1:
+                child_W += w_add
+            tree.child_N.view(B, -1).scatter_add_(
+                1, flat.reshape(B, -1), on_path.reshape(B, -1).to(torch.int32)
+            )
+            consumed = expand  # priors are consumed only at fresh expansions
+            fb = (fell_back.reshape(B, L) & consumed).sum(1, dtype=torch.int32)
+            ex = consumed.sum(1, dtype=torch.int32)
+        return fb, ex
 
     # -------------------- gumbel root --------------------
 
@@ -501,51 +514,53 @@ class MCTS:
         Dirichlet under PUCT (when ``add_noise`` and ``dirichlet_eps > 0``),
         the Gumbels under Gumbel (when ``add_noise``).
         """
-        cfg = self.config
-        use_gumbel = cfg.root_selection == "gumbel"
-        if generator is None and add_noise and (use_gumbel or cfg.dirichlet_eps > 0):
-            raise ValueError("root noise needs a generator")
-        logits, root_nn_value = self.evaluate(self.env.observe(root_state))
-        priors, root_fb = _masked_priors_fb(logits.float(), root_legal)
-        if not use_gumbel and add_noise and cfg.dirichlet_eps > 0:
-            n_legal = root_legal.sum(-1, keepdim=True).clamp(min=1).to(torch.float32)
-            if cfg.dirichlet_alpha_scale is not None:
-                alpha_b = cfg.dirichlet_alpha_scale / n_legal
-            else:
-                alpha_b = torch.full_like(n_legal, cfg.dirichlet_alpha)
-            # Masked-out actions get a tiny alpha, as the JAX search does.
-            alpha = torch.where(root_legal, alpha_b, 1e-3)
-            noise = _dirichlet(alpha, generator) * root_legal
-            noise = noise / noise.sum(-1, keepdim=True).clamp(min=1e-30)
-            priors = (1 - cfg.dirichlet_eps) * priors + cfg.dirichlet_eps * noise
-            priors = priors * root_legal
+        with span("mcts/search"):
+            cfg = self.config
+            use_gumbel = cfg.root_selection == "gumbel"
+            if generator is None and add_noise and (use_gumbel or cfg.dirichlet_eps > 0):
+                raise ValueError("root noise needs a generator")
+            logits, root_nn_value = self.evaluate(self.env.observe(root_state))
+            priors, root_fb = _masked_priors_fb(logits.float(), root_legal)
+            if not use_gumbel and add_noise and cfg.dirichlet_eps > 0:
+                n_legal = root_legal.sum(-1, keepdim=True).clamp(min=1).to(torch.float32)
+                if cfg.dirichlet_alpha_scale is not None:
+                    alpha_b = cfg.dirichlet_alpha_scale / n_legal
+                else:
+                    alpha_b = torch.full_like(n_legal, cfg.dirichlet_alpha)
+                # Masked-out actions get a tiny alpha, as the JAX search does.
+                alpha = torch.where(root_legal, alpha_b, 1e-3)
+                noise = _dirichlet(alpha, generator) * root_legal
+                noise = noise / noise.sum(-1, keepdim=True).clamp(min=1e-30)
+                priors = (1 - cfg.dirichlet_eps) * priors + cfg.dirichlet_eps * noise
+                priors = priors * root_legal
 
-        tree = self._empty_tree(root_state, priors)
-        aux = None
-        if use_gumbel:
-            slot_valid = tree.child_action[:, 0] >= 0
-            slot_logits = torch.where(
-                slot_valid, torch.log(tree.child_prior[:, 0].clamp(min=1e-30)), NEG_INF
-            )
-            aux = dict(
-                root_nn_value=root_nn_value.float(),
-                slot_valid=slot_valid,
-                slot_logits=slot_logits,
-                gumbel=(
-                    _gumbel(slot_logits.shape, generator, slot_logits.device)
-                    if add_noise
-                    else torch.zeros_like(slot_logits)
-                ),
-            )
-            schedule = self._schedule()
-        fb_count = root_fb.to(torch.int32)
-        ex_count = torch.ones_like(fb_count)
-        for sim in range(0, cfg.num_simulations, cfg.leaves_per_wave):
-            forced = self._forced_root_slot(tree, aux, schedule[sim]) if use_gumbel else None
-            fb, ex = self._wave(tree, sim, forced)
-            fb_count += fb
-            ex_count += ex
-        return self._finalize(tree, root_legal, fb_count, ex_count, aux)
+            tree = self._empty_tree(root_state, priors)
+            aux = None
+            if use_gumbel:
+                slot_valid = tree.child_action[:, 0] >= 0
+                slot_logits = torch.where(
+                    slot_valid, torch.log(tree.child_prior[:, 0].clamp(min=1e-30)), NEG_INF
+                )
+                aux = dict(
+                    root_nn_value=root_nn_value.float(),
+                    slot_valid=slot_valid,
+                    slot_logits=slot_logits,
+                    gumbel=(
+                        _gumbel(slot_logits.shape, generator, slot_logits.device)
+                        if add_noise
+                        else torch.zeros_like(slot_logits)
+                    ),
+                )
+                schedule = self._schedule()
+            fb_count = root_fb.to(torch.int32)
+            ex_count = torch.ones_like(fb_count)
+            for sim in range(0, cfg.num_simulations, cfg.leaves_per_wave):
+                forced = self._forced_root_slot(tree, aux, schedule[sim]) if use_gumbel else None
+                with span("mcts/wave"):
+                    fb, ex = self._wave(tree, sim, forced)
+                fb_count += fb
+                ex_count += ex
+            return self._finalize(tree, root_legal, fb_count, ex_count, aux)
 
     def _finalize(self, tree, root_legal, fb_count, ex_count, aux=None) -> SearchResult:
         """Policy, value and move at the root: the visit-count policy and

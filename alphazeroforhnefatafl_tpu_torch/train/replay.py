@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .learner import Batch
 
 
@@ -47,20 +48,21 @@ class ReplayBuffer:
     def add(self, board, side, reps, policy_idx, policy_p, value) -> None:
         """Append a batch of positions, evicting the oldest on overflow
         (``write_to_file``, ``game/main.rs:103-106``)."""
-        m = board.shape[0]
-        idx = (self.write + np.arange(m)) % self.capacity
-        self.board[idx] = board
-        self.side[idx] = side
-        self.reps[idx] = reps
-        k = min(policy_idx.shape[1], self.policy_k)
-        self.policy_idx[idx, :k] = policy_idx[:, :k]
-        self.policy_idx[idx, k:] = -1
-        self.policy_p[idx, :k] = policy_p[:, :k]
-        self.policy_p[idx, k:] = 0
-        self.value[idx] = value
-        self.write = int((self.write + m) % self.capacity)
-        self.size = int(min(self.size + m, self.capacity))
-        self.total_added += int(m)
+        with span("replay/add"):
+            m = board.shape[0]
+            idx = (self.write + np.arange(m)) % self.capacity
+            self.board[idx] = board
+            self.side[idx] = side
+            self.reps[idx] = reps
+            k = min(policy_idx.shape[1], self.policy_k)
+            self.policy_idx[idx, :k] = policy_idx[:, :k]
+            self.policy_idx[idx, k:] = -1
+            self.policy_p[idx, :k] = policy_p[:, :k]
+            self.policy_p[idx, k:] = 0
+            self.value[idx] = value
+            self.write = int((self.write + m) % self.capacity)
+            self.size = int(min(self.size + m, self.capacity))
+            self.total_added += int(m)
 
     def sample(self, rng: np.random.RandomState, batch_size: int) -> ReplaySample:
         idx = rng.randint(0, self.size, size=batch_size)

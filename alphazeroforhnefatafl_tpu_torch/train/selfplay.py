@@ -17,6 +17,7 @@ import torch
 
 from ..core.env import DRAW, TaflEnv, where_state
 from ..search.mcts import MCTS, MCTSConfig, _top_k, select_actions
+from ..utils.profiling import span
 from .replay import ReplayBuffer
 
 
@@ -128,15 +129,16 @@ class SelfPlayActor:
         Under Gumbel root selection the move is the search's ``best_action``
         (exploration comes from the sampled root Gumbels, not a
         temperature), unless ``gumbel_sample_temp_moves`` samples it."""
-        if self.mcts.config.root_selection == "gumbel":
-            actions = best_action
-            if self.cfg.gumbel_sample_temp_moves:
-                sampled = select_actions(action_probs, legal, temps, generator)
-                actions = torch.where(temps > 0, sampled, actions)
-        else:
-            actions = select_actions(action_probs, legal, temps, generator)
-        new_states, info = self.env.step_many(states, actions)
-        top_a, top_p = self.policy_target(action_probs)
+        with span("selfplay/tail"):
+            if self.mcts.config.root_selection == "gumbel":
+                actions = best_action
+                if self.cfg.gumbel_sample_temp_moves:
+                    sampled = select_actions(action_probs, legal, temps, generator)
+                    actions = torch.where(temps > 0, sampled, actions)
+            else:
+                actions = select_actions(action_probs, legal, temps, generator)
+            new_states, info = self.env.step_many(states, actions)
+            top_a, top_p = self.policy_target(action_probs)
         return new_states, actions, info, top_a, top_p
 
     @torch.inference_mode()
@@ -146,12 +148,16 @@ class SelfPlayActor:
         Returns (states, actions, info, top_a, top_p, root_value,
         prior_fallback_rate).
         """
-        legal = self.env.legal_mask_many(states)
-        result = self.mcts.search(states, legal, generator, add_noise=True)
-        out = self.move_tail(
-            states, legal, result.action_probs, temps, generator, result.best_action
-        )
-        self.moves_played += 1
+        with span("selfplay/move"):
+            with span("selfplay/root_mask"):
+                legal = self.env.legal_mask_many(states)
+            # Called through the instance attribute, which a caller may
+            # replace to observe each search.
+            result = self.mcts.search(states, legal, generator, add_noise=True)
+            out = self.move_tail(
+                states, legal, result.action_probs, temps, generator, result.best_action
+            )
+            self.moves_played += 1
         return out + (result.root_value, result.prior_fallback_rate)
 
     def play(

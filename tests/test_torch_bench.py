@@ -3,14 +3,12 @@
 ``net_flops_per_eval`` is the same count; the rollout, fed the very noise
 JAX's rollout draws (its key schedule replayed here), gives the same states,
 masks and checksums as the root ``bench.build_rollout`` on the CPU;
-``cli bench --cpu`` prints one line with every key; ``Stopwatch`` sums as
-JAX's does, and ``device_trace`` writes a trace that names an ``annotate``
-region. Every comparison is exact.
+``cli bench --cpu`` prints one line with every key, and ``device_trace``
+writes a trace that names an ``annotate`` region. Every comparison is
+exact.
 """
 
-import itertools
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +18,6 @@ import torch
 
 import bench as jbench
 from alphazeroforhnefatafl_tpu.core import env as jenv
-from alphazeroforhnefatafl_tpu.utils import profiling as jprofiling
 from alphazeroforhnefatafl_tpu_torch import bench as tbench
 from alphazeroforhnefatafl_tpu_torch import cli
 from alphazeroforhnefatafl_tpu_torch.core import env as tenv
@@ -143,35 +140,6 @@ def test_cli_bench_cpu_prints_one_line_with_every_key(capsys):
     for k in ("card", "power_limit_w", "mfu_128", "mfu_800", "chip_peak_tflops_bf16",
               "mcts_sims_per_s_800", "mcts_sims_per_s_serial"):
         assert rec[k] is None, k
-
-
-def _stopwatch_summary(module, monkeypatch):
-    """The summary of one fixed sequence of scopes under a clock that
-    advances 0.25 s a read."""
-    clock = itertools.count()
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock) * 0.25)
-    sw = module.Stopwatch()
-    for _ in range(2):
-        with sw("selfplay"):
-            pass
-    with sw("train"):
-        with sw("train/step"):
-            pass
-    with pytest.raises(RuntimeError):
-        with sw("arena"):
-            raise RuntimeError("a scope that raises still counts")
-    return sw.summary()
-
-
-def test_stopwatch_summary_matches_jax(monkeypatch):
-    got = _stopwatch_summary(tprofiling, monkeypatch)
-    assert got == _stopwatch_summary(jprofiling, monkeypatch)
-    assert got == {
-        "selfplay": {"total_s": 0.5, "count": 2},
-        "train/step": {"total_s": 0.25, "count": 1},
-        "train": {"total_s": 0.75, "count": 1},
-        "arena": {"total_s": 0.25, "count": 1},
-    }
 
 
 def test_device_trace_names_an_annotated_region(tmp_path):

@@ -492,6 +492,35 @@ def test_analyze_trace_on_a_synthetic_trace(tmp_path, capsys):
     assert s["device_events"] == 0 and s["off_track_device_events"] == 6
 
 
+def test_analyze_trace_puts_idle_time_down_to_the_innermost_span(tmp_path, capsys):
+    # The synthetic search region with the program's spans inside it. Idle
+    # in [1000, 2000] us: [1000, 1100] (middle in the level sync), [1350,
+    # 1400] (in the evaluation), [1450, 1500] (in the wave alone), [1530,
+    # 1600] and [1620, 2000] (after the wave).
+    trace = synthetic_trace()
+    for name, ts, dur in (("mcts/wave", 1000.0, 500.0), ("mcts/traverse", 1000.0, 120.0),
+                          ("mcts/level_sync", 1040.0, 40.0), ("mcts/evaluate", 1340.0, 120.0)):
+        trace["traceEvents"].append({"ph": "X", "cat": "user_annotation", "name": name,
+                                     "pid": 100, "tid": 100, "ts": ts, "dur": dur})
+    s = analyze_trace.analyze(trace["traceEvents"], "GPU|stream")
+    assert s["busy_ms"] == pytest.approx(0.35)
+    assert list(s["idle_by_span"]) == ["outside any span", "mcts/level_sync", "mcts/evaluate",
+                                       "mcts/wave"]
+    assert {k: (pytest.approx(ms), n) for k, (ms, n) in s["idle_by_span"].items()} == {
+        "outside any span": (0.45, 2), "mcts/level_sync": (0.1, 1), "mcts/evaluate": (0.05, 1),
+        "mcts/wave": (0.05, 1)}
+    # The idle time by span adds up to the region's idle time.
+    assert sum(ms for ms, _ in s["idle_by_span"].values()) == pytest.approx(1.0 - 0.35)
+    # Without the program's spans every gap is outside any span.
+    bare = analyze_trace.analyze(synthetic_trace()["traceEvents"], "GPU|stream")
+    assert list(bare["idle_by_span"]) == ["outside any span"]
+    (tmp_path / "host_1.pt.trace.json").write_text(json.dumps(trace))
+    assert analyze_trace.main([str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "by innermost host span" in out
+    assert re.search(r"0\.100 ms +15\.4% +x1 +mcts/level_sync", out)
+
+
 @pytest.mark.parametrize(
     "name, fam",
     [
