@@ -1,4 +1,4 @@
-// A host stand-in for the few CUDA features the tafl kernels use, so that the
+// A host stand-in for the few CUDA features the kernels use, so that the
 // same sources compile with a plain C++ compiler (-DTAFL_HOST_SIM) and run on
 // CPU buffers. It exists to test the kernels' logic where there is no card:
 // nothing of the package's run path uses it, and it says nothing about speed.
@@ -11,6 +11,7 @@
 
 #include <ucontext.h>
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -23,6 +24,9 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 
+struct uint2 {
+  uint32_t x, y;
+};
 struct uint4 {
   uint32_t x, y, z, w;
 };
@@ -217,3 +221,34 @@ template <typename T>
 inline T __ldg(const T* p) {
   return *p;
 }
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  memcpy(&f, &u, sizeof(f));
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  memcpy(&u, &f, sizeof(u));
+  return u;
+}
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+
+// bf16 as 16-bit storage (cuda_bf16.h): a float's upper half, rounded to
+// nearest with ties to even; a NaN stays a (quiet) NaN.
+struct __nv_bfloat16 {
+  unsigned short x;
+};
+struct __nv_bfloat162 {
+  __nv_bfloat16 x, y;
+};
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u = __float_as_uint(f);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {(unsigned short)((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16_rn(a), __float2bfloat16_rn(b)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }

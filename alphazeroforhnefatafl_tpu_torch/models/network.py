@@ -9,7 +9,13 @@ the ``dtype`` knob sets the trunk's compute type as Flax's ``dtype`` does
 
 The net takes the env's NHWC planes ``f32[B, N, N, C]`` and works in NCHW
 inside; the heads permute back to NHWC before flattening, so logits and the
-value head's Dense input keep the JAX layout.
+value head's Dense input keep the JAX layout. On the card the planes keep
+their NHWC strides (channels-last): the convolutions take and return
+channels-last, and at each GroupNorm site :func:`norm_act` takes the CUDA
+kernel of ``ops/group_norm.py`` (the norm, the skip and the ReLU in one pass)
+wherever ``ops.group_norm.kernel_applies`` holds: a bf16 trunk under
+``inference_mode`` or ``no_grad``. Everywhere else (the CPU, the float32
+trunk, the learner's forward with grad on) the site runs PyTorch's chain.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.group_norm import group_norm_act, group_norm_act_plain, kernel_applies
 
 GN_EPS = 1e-6  # Flax GroupNorm's epsilon (torch's default is 1e-5)
 OBS_PLANES = 6  # planes of TaflEnv.observe
@@ -32,12 +40,28 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        # A channels-last input on the card takes its weight channels-last in
+        # the same cast, which cuDNN would otherwise copy on its own.
+        fmt = (torch.channels_last
+               if x.is_cuda and x.is_contiguous(memory_format=torch.channels_last)
+               else torch.preserve_format)
+        return self._conv_forward(x, self.weight.to(x.dtype, memory_format=fmt), b)
 
 
-def group_norm(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
-    """GroupNorm with float32 statistics, returned in the input's dtype."""
-    return F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias, gn.eps).to(x.dtype)
+def norm_act(gn: nn.GroupNorm, x: torch.Tensor, skip: torch.Tensor | None = None) -> torch.Tensor:
+    """``relu(skip + group_norm(x))``, the skip where given: the CUDA kernel
+    where it applies, else PyTorch's chain with float32 statistics (counted
+    in ``norm_act.plain_calls`` on the card)."""
+    R, C, H, W = x.shape
+    if kernel_applies(x.device.type, x.dtype, x.is_contiguous(memory_format=torch.channels_last),
+                      torch.is_grad_enabled(), gn.num_groups, C, H * W):
+        return group_norm_act(x, gn.weight, gn.bias, gn.eps, skip)
+    if x.is_cuda:
+        norm_act.plain_calls += 1
+    return group_norm_act_plain(x, gn.num_groups, gn.weight, gn.bias, gn.eps, skip)
+
+
+norm_act.plain_calls = 0
 
 
 def _gn(channels: int) -> nn.GroupNorm:
@@ -53,9 +77,8 @@ class ResBlock(nn.Module):
         self.gn1 = _gn(channels)
 
     def forward(self, x):
-        y = F.relu(group_norm(self.gn0, self.conv0(x)))
-        y = group_norm(self.gn1, self.conv1(y))
-        return F.relu(x + y)
+        y = norm_act(self.gn0, self.conv0(x))
+        return norm_act(self.gn1, self.conv1(y), skip=x)
 
 
 class NFResBlock(nn.Module):
@@ -115,14 +138,13 @@ class PolicyValueNet(nn.Module):
                 x = blk(x)
             x = F.relu(x)
         else:
-            x = F.relu(group_norm(self.stem_gn, x))
+            x = norm_act(self.stem_gn, x)
             for blk in self.blocks:
                 x = blk(x)
 
         p = self.policy_conv(x)
-        if not self.norm_free:
-            p = group_norm(self.policy_gn, p)
-        p = self.policy_out(F.relu(p).float())
+        p = F.relu(p) if self.norm_free else norm_act(self.policy_gn, p)
+        p = self.policy_out(p.float())
         logits = p.permute(0, 2, 3, 1).reshape(B, -1)
 
         v = F.relu(self.value_conv(x.float()))

@@ -108,6 +108,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tafl_legal_mask.restype = i
     lib.tafl_step.argtypes = [p, p, p, p, p, p, p, p, p, p, i, p, p, p, p, p]
     lib.tafl_step.restype = i
+    lib.tafl_group_norm_act.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p, p]
+    lib.tafl_group_norm_act.restype = i
     return lib
 
 

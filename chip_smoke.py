@@ -5,7 +5,7 @@ CUDA card.
 Phases, in order; any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels from ``alphazeroforhnefatafl_tpu_torch/csrc``;
+2. build the CUDA kernels from ``alphazeroforhnefatafl_tpu_torch/csrc``;
 3. kernel 1 (legal mask) against its plain PyTorch version on the card,
    bit for bit: Copenhagen playout states and dense random boards at
    B=4096 and at B=64 (the arena's batch), playout states at B=512 and
@@ -35,7 +35,16 @@ Phases, in order; any failure exits non-zero:
    once, each output written once, at 3.35 TB/s) and the share of that
    bound the kernel reaches, at B=256, B=512 (a two-leaf wave) and B=4096;
    B=1 is timed too, as what a launch of either kernel costs with next to
-   no work in it;
+   no work in it; then the GroupNorm epilogue kernel (``csrc/group_norm.cu``)
+   alone at the flagship width (64 channels, 11x11) and 512, 1,024 and
+   4,096 rows, with and without the skip: within 2 bf16 ulps of PyTorch's
+   chain on the card and 1 ulp of exact math rounded once (as
+   ``ops.group_norm.group_norm_ulps`` counts them), its time on the card
+   beside its byte bound and beside the chain's (``library_ms``, which the
+   port does not call on this path), its launch counter exact; and the
+   flagship bf16 net at 1,024 rows, which must launch it 14 times a forward
+   with no plain call under ``inference_mode`` and take the plain chain at
+   all 14 sites with grad on, one line ``{"group_norm": {...}}``;
 5. self-play at full width: 11x11 Copenhagen, a 64-channel 6-block
    GroupNorm net with a bf16 trunk and random weights from a seed,
    ``MCTSConfig()`` (128 simulations, 128 children), 256 games of at most 8
@@ -211,10 +220,17 @@ Phases, in order; any failure exits non-zero:
    resignation run, and ``torch.profiler``'s busy share of one self-play
    move after move 100 with the two kernels' share of its card time.
 
-The launch counters are set to 0 before each of the phases 5 and 7 to 19
+The launch counters (the two tafl kernels', the GroupNorm kernel's, and
+``norm_act.plain_calls``, the net's GroupNorm sites that took PyTorch's
+chain on the card) are set to 0 before each of the phases 5 and 7 to 19
 (each driver of phase 16, each rank and world-1 run of phases 17 and 18,
 each split match, and phase 19's iteration and resignation run) and read
-after it. The second-to-last line is
+after it. Self-play (phases 5, 9 and 15, and 19's), the loop's and phase
+19's arenas launch the GroupNorm kernel 14 times a forward of the net at
+each forward's rows with no plain site, the learner never (every site of
+its forward takes the chain, as grad is on); config match, ladder, the
+bench's searches, play and profile_wave launch it and take no plain site.
+The second-to-last line is
 ``{"kernels": [...]}``, whose ``launches`` sum those phases and whose
 ``launches_by_path`` split them into self-play, learner, arena, multi-leaf
 self-play, Gumbel self-play, config match, ladder, the bench's rollouts and
@@ -225,8 +241,9 @@ phase 18 ran, the same four across the cards (``across_cards``,
 ``across_cards_world1``, ``across_cards_split_match``,
 ``across_cards_split_match_world1``; the ``torchrun`` ranks' launches are
 their processes' own and are not counted), and phase 19's
-(``whole_games``, ``whole_games_resign``); the last line is ``{"ok":
-true, "device": {...}}``. Run it from the repository root::
+(``whole_games``, ``whole_games_resign``); the GroupNorm kernel's entry
+adds ``plain_calls_by_path`` and its phase 4 times at 1,024 rows. The last
+line is ``{"ok": true, "device": {...}}``. Run it from the repository root::
 
     python3 chip_smoke.py
 
@@ -586,6 +603,105 @@ def phase_timing(device, checker, card):
     return times
 
 
+def phase_group_norm(device, card, rows=(512, 1024, 4096), net_rows=1024):
+    """The GroupNorm epilogue kernel against PyTorch's chain and exact math
+    on the card, its time beside its byte bound and the chain's, its
+    launches exact; then the flagship bf16 net's sites."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.models.network import (
+        GN_EPS, init_params, make_network, norm_act,
+    )
+    from alphazeroforhnefatafl_tpu_torch.ops.group_norm import (
+        GROUPS, group_norm_act, group_norm_act_plain, group_norm_ulps,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    C, n = 64, 11
+
+    def nhwc(R):
+        x = torch.randn(R, n, n, C, generator=gen, device=device)
+        return x.to(torch.bfloat16).permute(0, 3, 1, 2)
+
+    weight = 1 + 0.5 * torch.randn(C, generator=gen, device=device)
+    bias = 0.5 * torch.randn(C, generator=gen, device=device)
+    calls = 0
+
+    def kernel_call(x, skip):
+        nonlocal calls
+        calls += 1
+        return group_norm_act(x, weight, bias, GN_EPS, skip)
+
+    launches0 = group_norm_act.launches
+    cases = []
+    for R in rows:
+        x, skip_t = nhwc(R), nhwc(R)
+        for skip in (None, skip_t):
+            what = f"group_norm R={R} {'skip' if skip is not None else 'no skip'}"
+            got = kernel_call(x, skip)
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                fail(f"{what}: the output is not channels-last")
+            exact_ulps, chain_ulps = group_norm_ulps(got, x, weight, bias, GN_EPS, skip)
+            if exact_ulps > 1 or chain_ulps > 2:
+                fail(f"{what}: {exact_ulps} ulps from exact math, {chain_ulps} from the chain")
+            ms = time_ms(lambda: kernel_call(x, skip))
+            dev_ms = time_ms(lambda: kernel_call(x, skip), device_only=True)
+            library_ms = time_ms(
+                lambda: group_norm_act_plain(x, GROUPS, weight, bias, GN_EPS, skip),
+                device_only=True)
+            nbytes = R * n * n * C * 2 * (2 if skip is None else 3)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            cases.append(dict(rows=R, skip=skip is not None, ms=ms, device_ms=dev_ms,
+                              library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
+                              chain_ulps=chain_ulps, exact_ulps=exact_ulps))
+            print(f"time {what} on {card}: kernel {ms:.4f} ms per call ({dev_ms:.4f} ms of it "
+                  f"on the card), PyTorch's chain {library_ms:.4f} ms on the card; bound "
+                  f"{nbytes} bytes / 3.35 TB/s = {bound_ms:.5f} ms, "
+                  f"{100 * bound_ms / dev_ms:.1f}% of it reached; {chain_ulps:.2f} ulps from "
+                  f"the chain", flush=True)
+    if group_norm_act.launches - launches0 != calls:
+        fail(f"group_norm launches {group_norm_act.launches - launches0}, calls {calls}")
+
+    # The flagship net's 14 sites: the kernel under inference_mode, the
+    # plain chain with grad on.
+    env = make_env("copenhagen", device)
+    net = make_network(env.n, channels=C, blocks=6, dtype=torch.bfloat16)
+    net = init_params(net, torch.Generator().manual_seed(SEED)).to(device)
+    boards = dense_boards(np.random.RandomState(SEED), env.n, net_rows)
+    obs = env.observe(env.reset_batch(net_rows).replace(board=torch.as_tensor(boards, device=device)))
+    sites = {}
+    for mode, ctx in (("kernel", torch.inference_mode()), ("plain", torch.enable_grad())):
+        launches, plain = group_norm_act.launches, norm_act.plain_calls
+        batches = dict(group_norm_act.batches)
+        with ctx:
+            out = net(obs)
+        torch.cuda.synchronize()
+        sites[mode] = dict(out=[t.detach().float() for t in out],
+                           launches=group_norm_act.launches - launches,
+                           plain_calls=norm_act.plain_calls - plain,
+                           at_rows=group_norm_act.batches.get(net_rows, 0)
+                           - batches.get(net_rows, 0))
+    want = {"kernel": (SITES, 0, SITES), "plain": (0, SITES, 0)}
+    for mode, (launches, plain, at_rows) in want.items():
+        got = sites[mode]
+        if (got["launches"], got["plain_calls"], got["at_rows"]) != (launches, plain, at_rows):
+            fail(f"group_norm net {mode}: {got['launches']} launches ({got['at_rows']} at "
+                 f"{net_rows} rows), {got['plain_calls']} plain calls; want {launches}, {plain}")
+    gaps = [float((k - p).abs().max())
+            for k, p in zip(sites["kernel"]["out"], sites["plain"]["out"])]
+    if not gaps[0] < 0.20:  # the cell's logit_gap limit
+        fail(f"group_norm net: logits {gaps[0]} from the plain chain's")
+    line = {"card": card, "launches": group_norm_act.launches - launches0, "cases": cases,
+            "net": {"launches_a_forward": sites["kernel"]["launches"],
+                    "plain_calls_a_forward": sites["kernel"]["plain_calls"],
+                    "plain_calls_with_grad": sites["plain"]["plain_calls"],
+                    "launches_with_grad": sites["plain"]["launches"],
+                    "logit_gap": gaps[0], "value_gap": gaps[1]}}
+    print(json.dumps({"group_norm": line}), flush=True)
+    return line
+
+
 def phase_net_check(device):
     """The port's net on the card against the same weights on the CPU, in
     float32 with TF32 off (tolerance 1e-4: the two devices sum convolutions
@@ -712,8 +828,10 @@ def phase_selfplay(device, card, mcts_cfg, moves, label):
         fail(f"policy targets do not sum to 1 (worst {np.abs(psum - 1).max()})")
     if actor.moves_played != moves:
         fail(f"self-play {label} made {actor.moves_played} batched moves, not {moves}")
-    # One root mask a move; one env step a wave and one for the move.
-    want = {"legal_mask": moves, "step": moves * (sims // mcts_cfg.leaves_per_wave + 1)}
+    # One root mask a move; one env step a wave and one for the move; one
+    # forward of the net a wave and one at the root, as many as the steps.
+    steps = moves * (sims // mcts_cfg.leaves_per_wave + 1)
+    want = {"legal_mask": moves, "step": steps, "group_norm": SITES * steps, "norm_plain": 0}
     if launches != want:
         fail(f"self-play {label} launched {launches}, not {want}")
     rate = moves * sp_cfg.batch_size / wall
@@ -731,20 +849,59 @@ def phase_selfplay(device, card, mcts_cfg, moves, label):
     return dict(launches=launches, replay=replay, rate=rate, move_s=q[1], traverse_s=tq[1])
 
 
+#: The two tafl kernels.
+TAFL = ("legal_mask", "step")
+#: What :func:`read_launches` reads: the tafl kernels' launches, the
+#: GroupNorm kernel's, and the net's GroupNorm sites that took PyTorch's
+#: chain on the card (``norm_act.plain_calls``).
+LAUNCH_KEYS = TAFL + ("group_norm", "norm_plain")
+
+
+def gn_sites(blocks: int) -> int:
+    """The GroupNorm sites of a forward: the stem, two a block, the policy head."""
+    return 2 * blocks + 2
+
+
+SITES = gn_sites(6)  # the flagship net's, and every 6-block net's here
+
+
+def tafl(launches):
+    """The tafl kernels' part of a :func:`read_launches` or :func:`read_batches`."""
+    return {k: launches[k] for k in TAFL}
+
+
+def check_norm(launches, what, forwards=None, sites=SITES):
+    """A path whose every forward is a bf16 GroupNorm net at a width the
+    kernel serves, under ``inference_mode``: the kernel launched ``sites``
+    times a forward (``forwards`` of them, where the caller knows it), and
+    no site took PyTorch's chain."""
+    gn, plain = launches["group_norm"], launches["norm_plain"]
+    if plain or not gn or gn % sites or (forwards is not None and gn != sites * forwards):
+        want = f"{sites} a forward" + ("" if forwards is None else f": {sites * forwards}")
+        fail(f"{what}: {gn} GroupNorm kernel launches (want {want}) and {plain} sites on "
+             "PyTorch's chain (want 0)")
+
+
 def read_launches():
+    from alphazeroforhnefatafl_tpu_torch.models.network import norm_act
+    from alphazeroforhnefatafl_tpu_torch.ops.group_norm import group_norm_act
     from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
     from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays
 
-    return {"legal_mask": batched_legal_mask.launches, "step": step_arrays.launches}
+    return {"legal_mask": batched_legal_mask.launches, "step": step_arrays.launches,
+            "group_norm": group_norm_act.launches, "norm_plain": norm_act.plain_calls}
 
 
 def read_batches():
-    """Each kernel's launches by the batch they saw, as ``{str(B): count}``."""
+    """Each kernel's launches by the batch they saw, as ``{str(B): count}``
+    (the GroupNorm kernel's by the rows of the forward)."""
+    from alphazeroforhnefatafl_tpu_torch.ops.group_norm import group_norm_act
     from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
     from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays
 
-    return {"legal_mask": {str(b): n for b, n in sorted(batched_legal_mask.batches.items())},
-            "step": {str(b): n for b, n in sorted(step_arrays.batches.items())}}
+    return {name: {str(b): n for b, n in sorted(fn.batches.items())}
+            for name, fn in (("legal_mask", batched_legal_mask), ("step", step_arrays),
+                             ("group_norm", group_norm_act))}
 
 
 def batches_since(before):
@@ -758,13 +915,15 @@ def batches_since(before):
 
 
 def zero_launches():
+    from alphazeroforhnefatafl_tpu_torch.models.network import norm_act
+    from alphazeroforhnefatafl_tpu_torch.ops.group_norm import group_norm_act
     from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import batched_legal_mask
     from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import step_arrays
 
-    batched_legal_mask.launches = 0
-    step_arrays.launches = 0
-    batched_legal_mask.batches = {}
-    step_arrays.batches = {}
+    for fn in (batched_legal_mask, step_arrays, group_norm_act):
+        fn.launches = 0
+        fn.batches = {}
+    norm_act.plain_calls = 0
 
 
 def sample_arrays(s):
@@ -921,6 +1080,11 @@ def phase_training(device, card, replay, steps=30, batch_size=256):
     launches = read_launches()
     if launches["step"] != 0:
         fail(f"the learner launched kernel 2 {launches['step']} times")
+    # One forward a step, with grad on: every site takes PyTorch's chain.
+    if launches["group_norm"] != 0 or launches["norm_plain"] != SITES * steps:
+        fail(f"{steps} learner steps launched the GroupNorm kernel {launches['group_norm']} "
+             f"times and took the plain chain at {launches['norm_plain']} sites, not 0 and "
+             f"{SITES * steps}")
     if not np.isfinite(losses).all() or not np.isfinite(norms).all():
         fail(f"non-finite learner loss or grad_norm: {losses} {norms}")
     if not min(norms) > 0:
@@ -969,9 +1133,9 @@ def phase_loop(device, card):
     from alphazeroforhnefatafl_tpu_torch.utils.metrics import MetricsLogger
 
     env = make_env("copenhagen", device)
-    arena = {"legal_mask": 0, "step": 0, "seconds": 0.0, "results": []}
-    learner = {"legal_mask": 0, "step": 0, "builds": 0}
-    untimed_match = loop.play_match
+    arena = {**dict.fromkeys(LAUNCH_KEYS, 0), "seconds": 0.0, "results": []}
+    learner = {**dict.fromkeys(LAUNCH_KEYS, 0), "builds": 0}
+    untimed_match, uncounted_train_step = loop.play_match, loop.make_train_step
     uncounted_builder = loop.make_batch_builder
 
     def counted_builder(*args, **kw):
@@ -989,6 +1153,20 @@ def phase_loop(device, card):
 
         return counted_build
 
+    def counted_train_step(*args, **kw):
+        """The loop's train step, with its net's GroupNorm sites counted."""
+        step = uncounted_train_step(*args, **kw)
+
+        def counted_step(batch):
+            before = read_launches()
+            metrics = step(batch)
+            after = read_launches()
+            for k in after:
+                learner[k] += after[k] - before[k]
+            return metrics
+
+        return counted_step
+
     def counted_match(*args, **kw):
         before = read_launches()
         torch.cuda.synchronize()
@@ -996,15 +1174,18 @@ def phase_loop(device, card):
         result = untimed_match(*args, **kw)
         torch.cuda.synchronize()
         arena["seconds"] += time.perf_counter() - t
-        plies = read_launches()["legal_mask"] - before["legal_mask"]
-        steps = read_launches()["step"] - before["step"]
+        got = {k: v - before[k] for k, v in read_launches().items()}
+        plies, steps = got["legal_mask"], got["step"]
         if not 1 <= plies <= kw["max_game_len"]:
             fail(f"an arena match launched kernel 1 {plies} times")
         if steps != plies * (args[3].num_simulations + 1):
             fail(f"an arena match of {plies} plies launched kernel 2 {steps} times, not "
                  f"{plies} x {args[3].num_simulations + 1}")
-        arena["legal_mask"] += plies
-        arena["step"] += steps
+        # A forward at the root and one a wave, each in two halves (the
+        # candidate's games and the incumbent's).
+        check_norm(got, f"an arena match of {plies} plies", 2 * steps)
+        for k in LAUNCH_KEYS:
+            arena[k] += got[k]
         arena["results"].append(result)
         return result
 
@@ -1019,6 +1200,7 @@ def phase_loop(device, card):
         )
         loop.play_match = counted_match
         loop.make_batch_builder = counted_builder
+        loop.make_train_step = counted_train_step
         zero_launches()
         try:
             t0 = time.perf_counter()
@@ -1049,6 +1231,7 @@ def phase_loop(device, card):
         finally:
             loop.play_match = untimed_match
             loop.make_batch_builder = uncounted_builder
+            loop.make_train_step = uncounted_train_step
         total = read_launches()
         lines = [json.loads(line) for line in open(f"{tmp}/metrics.jsonl")]
         latest = mgr.latest_iteration()
@@ -1075,15 +1258,18 @@ def phase_loop(device, card):
         if r.games != 64 or r.candidate_wins + r.incumbent_wins + r.draws + r.truncated != 64:
             fail(f"arena counts do not add up to 64: {r.as_dict()}")
     # Every learner step built one batch, and each build launched kernel 1
-    # once and kernel 2 never.
+    # once and kernel 2 never; each step's forward (grad on) took the plain
+    # chain at every site.
     builds = learner.pop("builds")
-    if builds != state.step or learner != {"legal_mask": builds, "step": 0}:
+    if builds != state.step or learner != {"legal_mask": builds, "step": 0, "group_norm": 0,
+                                           "norm_plain": SITES * builds}:
         fail(f"{state.step} learner steps built {builds} batches with launches {learner}")
     # What is left after the arena and the learner is self-play: one mask
-    # and 65 steps a batched move.
+    # and 65 steps a batched move, a forward a step.
     selfplay = {k: total[k] - arena[k] - learner[k] for k in total}
     if selfplay["legal_mask"] <= 0 or selfplay["step"] != 65 * selfplay["legal_mask"]:
         fail(f"launches {total} less arena {arena} and learner {learner} leave {selfplay}")
+    check_norm(selfplay, "the loop's self-play", selfplay["step"])
     sp_s = sum(l["time/selfplay_s"] for l in iterations)
     train_s = sum(l["time/train_s"] for l in iterations)
     print(f"loop on {card}: iterations 0-1 in {first_s:.2f} s, resume and iteration 2 in "
@@ -1093,9 +1279,9 @@ def phase_loop(device, card):
           f"({arena['legal_mask'] // 3} plies of B=64, 64 sims); arena results "
           f"{[(r.candidate_wins, r.incumbent_wins, r.draws, r.truncated) for r in arena['results']]}; "
           f"launches self-play {selfplay}, learner {learner}, "
-          f"arena {dict(legal_mask=arena['legal_mask'], step=arena['step'])}", flush=True)
+          f"arena {tafl(arena)}", flush=True)
     return {"selfplay": selfplay, "learner": learner,
-            "arena": {"legal_mask": arena["legal_mask"], "step": arena["step"]}}
+            "arena": {k: arena[k] for k in LAUNCH_KEYS}}
 
 
 def phase_interleaved(device, card, rounds=3):
@@ -1121,7 +1307,7 @@ def phase_interleaved(device, card, rounds=3):
     gens = {k: torch.Generator(device=device).manual_seed(SEED) for k in configs}
     temps = torch.ones((B,), device=device)
     seconds = {k: [] for k in configs}
-    launches = {k: {"legal_mask": 0, "step": 0} for k in configs}
+    launches = {k: dict.fromkeys(LAUNCH_KEYS, 0) for k in configs}
     order = list(configs)
     zero_launches()
     for r in range(rounds + 1):  # the first round warms up and is not timed
@@ -1136,8 +1322,9 @@ def phase_interleaved(device, card, rounds=3):
             for name, count in read_launches().items():
                 launches[k][name] += count - before[name]
     for k, c in configs.items():
-        want = {"legal_mask": rounds + 1,
-                "step": (rounds + 1) * (c.num_simulations // c.leaves_per_wave + 1)}
+        steps = (rounds + 1) * (c.num_simulations // c.leaves_per_wave + 1)
+        want = {"legal_mask": rounds + 1, "step": steps, "group_norm": SITES * steps,
+                "norm_plain": 0}
         if launches[k] != want:
             fail(f"interleaved {k} launched {launches[k]}, not {want}")
         if bool(states[k].terminated.any()):
@@ -1184,8 +1371,9 @@ def phase_config_match(device, card):
     # waves and the move's step.
     played = launches["legal_mask"] // 2
     want = {"legal_mask": 2 * played, "step": played * (sims + sims // 2 + 1)}
-    if not 1 <= played <= plies or launches != want:
+    if not 1 <= played <= plies or tafl(launches) != want:
         fail(f"a config match of {played} plies launched {launches}, not {want}")
+    check_norm(launches, "a config match")
     print(f"config match on {card}: two-leaf against serial, {games} games, {sims} sims, "
           f"{played} plies in {seconds:.2f} s ({seconds / played:.3f} s a ply); result "
           f"{(r.candidate_wins, r.incumbent_wins, r.draws, r.truncated)}; launches {launches}",
@@ -1240,6 +1428,7 @@ def phase_ladder(device, card):
     launches = read_launches()
     if len(matches) != 3:
         fail(f"a ladder over three entries played {len(matches)} matches")
+    check_norm(launches, "the ladder")
     if list(ratings) != ["net", "uniform", "random"] or ratings["net"] != 0.0:
         fail(f"ladder ratings {ratings}")
     if not np.isfinite(list(ratings.values())).all():
@@ -1314,14 +1503,16 @@ def phase_bench(device, card):
     total = read_launches()
     rollout_launches = {k: total[k] - mcts[k] for k in total}
 
-    want_rollout = {"legal_mask": 2, "step": chunk * (1 + windows * pipeline)}
+    want_rollout = {"legal_mask": 2, "step": chunk * (1 + windows * pipeline),
+                    "group_norm": 0, "norm_plain": 0}
     want_mcts = {"legal_mask": len(searches),
                  "step": sum(sims // L * (1 + timed) for sims, L, timed in searches)}
     if carried["rollouts"] != 1 + windows * pipeline or rollout_launches != want_rollout:
         fail(f"the bench made {carried['rollouts']} rollouts launching {rollout_launches}, not "
              f"{1 + windows * pipeline} launching {want_rollout}")
-    if mcts != want_mcts:
+    if tafl(mcts) != want_mcts:
         fail(f"the bench's searches launched {mcts}, not {want_mcts}")
+    check_norm(mcts, "the bench's searches")
     # After the counts are read: the carried mask against kernel 1 and its
     # plain version on the carried state.
     env, state, mask = carried["env"], carried["state"], carried["mask"]
@@ -1405,8 +1596,9 @@ def phase_play(device, card, sims=64):
             fail(f"cli play --ai: {play} is illegal ({reason.name})")
         game.do_play(Play.from_str(play))
     want = {"legal_mask": 2, "step": 2 * sims}
-    if launches != want:
+    if tafl(launches) != want:
         fail(f"cli play --ai launched {launches}, not {want}")
+    check_norm(launches, "cli play --ai", sites=gn_sites(3))  # its net has 3 blocks
     print(f"play on {card}: cli play --ai attacker, AI plays {ai[0]}, human c4-c5, AI plays "
           f"{ai[1]}, both legal under the oracle; launches {launches}", flush=True)
     return launches
@@ -1450,7 +1642,7 @@ def phase_determinism(device, card, runs=((2, 8), (1, 4))):
         return replay, stats.as_dict()
 
     zero_launches()
-    total = {"legal_mask": 0, "step": 0}
+    total = dict.fromkeys(LAUNCH_KEYS, 0)
     t0 = time.perf_counter()
     for leaves, moves in runs:
         cfg = flagship_search(leaves)
@@ -1470,6 +1662,7 @@ def phase_determinism(device, card, runs=((2, 8), (1, 4))):
             fail(f"{label}: seeds 0 and 1 played the same boards")
         total["legal_mask"] += 3 * moves
         total["step"] += 3 * moves * (cfg.num_simulations // leaves + 1)
+        total["group_norm"] += SITES * 3 * moves * (cfg.num_simulations // leaves + 1)
         print(f"determinism on {card}: {label}, 256 games, {moves} moves, root noise and "
               f"temperature on: two runs of seed 0 equal in every replay field "
               f"({', '.join(REPLAY_FIELDS)}) and stats; seed 1 plays other boards "
@@ -1528,8 +1721,9 @@ def phase_profile_wave(device, card, sims=800):
     s = analyses[0]
     steps_traced = sum(n for name, n in s["op_counts"].items() if "tafl_step_kernel" in name)
     want = {"legal_mask": 1, "step": 2 * sims}  # the root mask; a warm and a traced search
-    if launches != want:
+    if tafl(launches) != want:
         fail(f"profile_wave launched {launches}, not {want}")
+    check_norm(launches, "profile_wave")
     if steps_traced != sims:
         fail(f"the trace holds {steps_traced} step-kernel events, not one a wave ({sims})")
     if not s["device_events"] or s["busy_share"] is None or not 0 < s["busy_share"] <= 1:
@@ -1675,7 +1869,7 @@ def phase_run_drivers(device, card):
             print(f"bench_mcts: {out.strip()}", flush=True)
         finally:
             os.chdir(cwd)
-    if launches["bench_mcts_script"] != {"legal_mask": 1, "step": 3 * 64}:
+    if tafl(launches["bench_mcts_script"]) != {"legal_mask": 1, "step": 3 * 64}:
         fail(f"bench_mcts launched {launches['bench_mcts_script']}, not one mask and 192 steps")
     del launches["summarize_run"]  # reads a log; launches nothing
     print(f"run drivers on {card}: seconds {seconds}; launches {launches}; cuts of the "
@@ -1822,8 +2016,8 @@ def timed_loop(env, config, log_path, replay, group):
     from alphazeroforhnefatafl_tpu_torch.utils.metrics import MetricsLogger
 
     parts = {"arena_s": [], "allreduce_ms": [], "allreduce_start": [], "digests_checked": 0,
-             "arena_launches": {"legal_mask": 0, "step": 0},
-             "arena_batches": {"legal_mask": {}, "step": {}}, "arena_gather_s": [],
+             "arena_launches": dict.fromkeys(LAUNCH_KEYS, 0),
+             "arena_batches": {k: {} for k in read_batches()}, "arena_gather_s": [],
              "arena_gather_start": []}
     untimed_match, untimed_mean, unchecked_make = loop.play_match, learner.mean_, loop.make_train_step
 
@@ -2048,7 +2242,7 @@ def phase_ranks(device, card, world, rank_device, backend, what):
 
     env = make_env("copenhagen", device)
     t_phase = time.perf_counter()
-    world1, world1_launches, world1_arenas = [], {"legal_mask": 0, "step": 0}, []
+    world1, world1_launches, world1_arenas = [], dict.fromkeys(LAUNCH_KEYS, 0), []
 
     def one_rank_iteration():
         with tempfile.TemporaryDirectory() as tmp:
@@ -2104,14 +2298,14 @@ def phase_ranks(device, card, world, rank_device, backend, what):
         # and once at as many.
         for got_b in got["arena_batches"]:
             plies = sum(got_b["legal_mask"].values())
-            if got_b != {"legal_mask": {str(games): plies},
-                         "step": {str(games): plies, str(2 * games): 32 * plies}}:
+            if tafl(got_b) != {"legal_mask": {str(games): plies},
+                               "step": {str(games): plies, str(2 * games): 32 * plies}}:
                 fail(f"rank {r}: the arena's launches by batch {got_b} are not those of "
                      f"{games} games a rank")
     for parts in world1_arenas:
         plies = parts["arena_launches"]["legal_mask"]
-        if parts["arena_batches"] != {"legal_mask": {"64": plies},
-                                      "step": {"64": plies, "128": 32 * plies}}:
+        if tafl(parts["arena_batches"]) != {"legal_mask": {"64": plies},
+                                            "step": {"64": plies, "128": 32 * plies}}:
             fail(f"world 1's arena launched by batch {parts['arena_batches']}, not at 64 games")
     check_split_match(ranks, whole, world)
     if any(got["params"] != ranks[0]["params"] for got in ranks):
@@ -2144,7 +2338,7 @@ def phase_ranks(device, card, world, rank_device, backend, what):
         wait[name] = {"wait_ms_median": 1e3 * float(np.median(waits)),
                       "after_last_arrival_ms_median": 1e3 * float(np.median(took - waits))}
     split = ranks[0]["split"]
-    launches = {k: sum(got["launches"][k] for got in ranks) for k in ("legal_mask", "step")}
+    launches = {k: sum(got["launches"][k] for got in ranks) for k in LAUNCH_KEYS}
     return {
         "steps": steps,
         "summary": {
@@ -2181,7 +2375,7 @@ def phase_ranks(device, card, world, rank_device, backend, what):
         "launches": {
             "loop": launches, "loop_world1": world1_launches,
             "split_match": {k: sum(got["split"]["launches"][k] for got in ranks)
-                            for k in ("legal_mask", "step")},
+                            for k in LAUNCH_KEYS},
             "split_match_world1": whole["launches"],
         },
     }
@@ -2351,10 +2545,11 @@ def check_split_match(ranks, whole, world):
         plies = whole["launches"]["legal_mask"]
         want = {"legal_mask": {str(games): plies},
                 "step": {str(games): plies, str(2 * games): 4 * plies}}
-        if split["batches"] != want:
+        if tafl(split["batches"]) != want:
             fail(f"rank {r}: the split match launched by batch {split['batches']}, not {want}")
     plies = whole["launches"]["legal_mask"]
-    if whole["batches"] != {"legal_mask": {"64": plies}, "step": {"64": plies, "128": 4 * plies}}:
+    if tafl(whole["batches"]) != {"legal_mask": {"64": plies},
+                                  "step": {"64": plies, "128": 4 * plies}}:
         fail(f"the whole match launched by batch {whole['batches']}")
     c = whole["counts"]
     if sum(c) != SPLIT_GAMES or c[0] + c[1] < 1 or not 0 < whole["fallback"] < 1:
@@ -2872,11 +3067,14 @@ def check_launches(rec: GameRecorder, batches: dict, cfg) -> dict:
     move (at the self-play batch), once a learner step (at the learner's
     batch) and once an arena ply (at the arena's games); kernel 2 ``sims /
     L`` times a move at ``L`` rows a game and once at the batch, and
-    ``arena_sims / L`` times a ply and once."""
+    ``arena_sims / L`` times a ply and once; the GroupNorm kernel 14 times
+    a forward: a self-play move's ``sims / L`` waves at ``L`` rows a game
+    and its root at the batch, an arena ply's waves and root in two halves
+    (the candidate's games and the incumbent's), the learner never."""
     moves, plies, steps = (len(rec.steps["selfplay"]), len(rec.steps["arena"]),
                            len(rec.train_metrics))
     B, G, L = cfg.selfplay.batch_size, cfg.arena_games, cfg.mcts.leaves_per_wave
-    want = {"legal_mask": {}, "step": {}}
+    want = {"legal_mask": {}, "step": {}, "group_norm": {}}
 
     def add(kernel, batch, count):
         if count:
@@ -2889,6 +3087,10 @@ def check_launches(rec: GameRecorder, batches: dict, cfg) -> dict:
     add("step", B, moves)
     add("step", G * L, plies * (cfg.arena_sims // L))
     add("step", G, plies)
+    add("group_norm", B * L, SITES * moves * (cfg.mcts.num_simulations // L))
+    add("group_norm", B, SITES * moves)
+    add("group_norm", G * L // 2, 2 * SITES * plies * (cfg.arena_sims // L))
+    add("group_norm", G // 2, 2 * SITES * plies)
     if batches != want:
         fail(f"whole games launched {batches} by batch, not {want}")
     return {k: sum(v.values()) for k, v in batches.items()}
@@ -3003,6 +3205,7 @@ def phase_whole_games(device, card, checker, phase5_rate):
                 rc, out, err = captured(train_run.main, train_run.record_argv(rec_line))
                 _sync(device)
                 batches = batches_since(before)
+                plain = read_launches()["norm_plain"]
             if rc != 0:
                 fail(f"phase 19 train_run returned {rc}; stderr:\n{err}")
             metrics = json.loads((Path(tmp) / "runs" / "whole_r4ab" / "metrics.jsonl")
@@ -3012,6 +3215,11 @@ def phase_whole_games(device, card, checker, phase5_rate):
     run_s = time.perf_counter() - t_phase
     cfg = rec.loop_config
     launches = check_launches(rec, batches, cfg)
+    # Only the learner's forwards (grad on) take the plain chain.
+    if plain != SITES * len(rec.train_metrics):
+        fail(f"whole games took the plain chain at {plain} GroupNorm sites, not 14 in each of "
+             f"{len(rec.train_metrics)} learner steps")
+    launches["norm_plain"] = plain
     sp_cfg = cfg.selfplay
 
     # (a) every game ends, rows restart mid-batch; (d) the replay.
@@ -3078,21 +3286,26 @@ def phase_whole_games(device, card, checker, phase5_rate):
                        torch.Generator(device=device).manual_seed(SEED), RESIGN_GAMES)
             _sync(device)
             r_batches = batches_since(before)
+            r_plain = read_launches()["norm_plain"]
         r_stats = second.stats[0]
         _, r_split, _ = checked_selfplay(second, sp_cfg.max_game_len)
         L, sims = cfg.mcts.leaves_per_wave, cfg.mcts.num_simulations
         moves = len(second.steps["selfplay"])
         want = {"legal_mask": {str(RESIGN_GAMES): moves},
-                "step": {str(RESIGN_GAMES * L): moves * (sims // L), str(RESIGN_GAMES): moves}}
-        if r_batches != want:
-            fail(f"the resignation run launched {r_batches} by batch, not {want}")
+                "step": {str(RESIGN_GAMES * L): moves * (sims // L), str(RESIGN_GAMES): moves},
+                "group_norm": {str(RESIGN_GAMES * L): SITES * moves * (sims // L),
+                               str(RESIGN_GAMES): SITES * moves}}
+        if r_batches != want or r_plain != 0:
+            fail(f"the resignation run launched {r_batches} by batch, not {want}, and took "
+                 f"the plain chain at {r_plain} GroupNorm sites")
         if r_stats.resigned == 0:
             fail(f"no game resigned at threshold {threshold} either")
         resign = {"threshold": threshold, "games": r_stats.games, "resigned": r_stats.resigned,
                   "resign_fp_rate": r_stats.as_dict()["resign_fp_rate"],
                   "resign_checked": r_stats.resign_checked, "split": r_split,
                   "seconds": second.seconds["selfplay"],
-                  "launches": {k: sum(v.values()) for k, v in r_batches.items()}}
+                  "launches": {**{k: sum(v.values()) for k, v in r_batches.items()},
+                               "norm_plain": r_plain}}
     phase_s = time.perf_counter() - t_phase
 
     positions = metrics["selfplay/positions"]
@@ -3185,6 +3398,7 @@ def main(argv=None) -> int:
     phase_kernels(device, checker)
     phase_every_card(checker)
     times = phase_timing(device, checker, card)
+    group_norm = phase_group_norm(device, card)
     phase_net_check(device)
 
     # Phase 5: self-play at full width through both kernels.
@@ -3258,12 +3472,27 @@ def main(argv=None) -> int:
             **{path: counts[name] for path, counts in multirank_launches.items()},
             **{path: counts[name] for path, counts in whole_launches.items()},
         }
-        for name in ("legal_mask", "step")
+        for name in LAUNCH_KEYS
     }
-    for name, paths in by_path.items():
-        for path, count in paths.items():
+    plain_by_path = by_path.pop("norm_plain")
+    for name in TAFL:
+        for path, count in by_path[name].items():
             if count <= 0 and (name, path) != ("step", "learner"):
                 fail(f"kernel {name} was not launched on the {path} path")
+    # The GroupNorm kernel serves every path that searches with a bf16
+    # GroupNorm net; the learner takes the plain chain; the split matches'
+    # nets have no GroupNorm, and the rank phases are counted but not held.
+    served = ("selfplay", "arena", "selfplay_multileaf", "selfplay_gumbel", "config_match",
+              "ladder", "bench_mcts", "play", "determinism", "profile_wave",
+              *whole_launches)
+    for path in served:
+        if by_path["group_norm"][path] <= 0:
+            fail(f"kernel group_norm was not launched on the {path} path")
+        if path != "whole_games" and plain_by_path[path] != 0:
+            fail(f"{plain_by_path[path]} GroupNorm sites took PyTorch's chain on the {path} path")
+    if by_path["group_norm"]["learner"] != 0 or plain_by_path["learner"] <= 0:
+        fail(f"the learner launched the GroupNorm kernel {by_path['group_norm']['learner']} "
+             f"times and took the plain chain at {plain_by_path['learner']} sites")
 
     sources = {
         "legal_mask": ("csrc/legal_mask.cu", "ops/legal_mask.py:148"),
@@ -3294,6 +3523,28 @@ def main(argv=None) -> int:
         }
         for name, (source, replaces) in sources.items()
     ]
+    # The GroupNorm kernel at 1,024 rows (a two-leaf wave of 512 games),
+    # without the skip; "library_ms" is PyTorch's chain, which the port
+    # does not call on this path. It replaces no TPU kernel.
+    at = {(c["rows"], c["skip"]): c for c in group_norm["cases"]}
+    kernels.append({
+        "name": "group_norm",
+        "route": "cuda",
+        "source": "alphazeroforhnefatafl_tpu_torch/csrc/group_norm.cu",
+        "replaces": None,
+        "launches": sum(by_path["group_norm"].values()),
+        "launches_by_path": by_path["group_norm"],
+        "plain_calls_by_path": plain_by_path,
+        "max_ulps_from_chain": max(c["chain_ulps"] for c in group_norm["cases"]),
+        "max_ulps_from_exact": max(c["exact_ulps"] for c in group_norm["cases"]),
+        "ms": at[1024, False]["ms"],
+        "bound_ms": at[1024, False]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": at[1024, False]["library_ms"],
+        "device_ms": at[1024, False]["device_ms"],
+        "bytes": at[1024, False]["bytes"],
+        "with_skip": at[1024, True],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print_ok()
     return 0

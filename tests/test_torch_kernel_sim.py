@@ -3,9 +3,11 @@
 ``csrc/sim/simt_host.h`` stands in for the few CUDA features the kernels use
 (warp shuffles and votes, block barriers, shared memory), so the same
 ``csrc/*.cu`` files compile with g++ and run on CPU buffers, one fiber per
-GPU thread. That checks the kernels' logic bit for bit (tolerance 0: every
-output is an integer or a bool) where there is no card; what nvcc makes of
-the sources, and their speed, only ``chip_smoke.py`` on a GPU can say.
+GPU thread. That checks the kernels' logic where there is no card: the
+legal mask and the step bit for bit (tolerance 0: every output is an integer
+or a bool), the GroupNorm epilogue within 1 bf16 ulp of exact math rounded
+once (its float32 sums run in another order). What nvcc makes of the
+sources, and their speed, only ``chip_smoke.py`` on a GPU can say.
 """
 
 import ctypes
@@ -19,6 +21,9 @@ import torch
 from alphazeroforhnefatafl_tpu_torch.core import env as tenv
 from alphazeroforhnefatafl_tpu_torch.core.rules import PRESETS
 from alphazeroforhnefatafl_tpu_torch.ops import _build, step_kernel
+from alphazeroforhnefatafl_tpu_torch.ops.group_norm import (
+    GROUPS, bf16_ulp, exact_group_norm, group_norm_act_plain, group_norm_ulps, ordinal,
+)
 from alphazeroforhnefatafl_tpu_torch.ops.legal_mask import legal_mask_plain
 from alphazeroforhnefatafl_tpu_torch.ops.step_kernel import SCALAR_ROWS, step_plain
 from test_torch_cases import constructed_cases
@@ -231,3 +236,102 @@ def test_sim_conventions_match_plain(sim, case):
             s = dense_states(rng, env, 1, side)
         actions = random_actions(rng, legal_mask_plain(env, s.board, s.side_to_play))
         check(sim, env, s, actions, f"{case} side {side}")
+
+
+# The GroupNorm epilogue (csrc/group_norm.cu).
+
+GN_EPS = 1e-6
+CL = torch.channels_last
+
+
+def sim_group_norm(lib, x, weight, bias, skip):
+    """The kernel on CPU buffers: ``x`` (and ``skip``) bf16 channels-last."""
+    R, C, H, W = x.shape
+    out = torch.full((R, H, W, C), float("nan"), dtype=torch.bfloat16).permute(0, 3, 1, 2)
+    rc = lib.tafl_group_norm_act(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                                 None if skip is None else skip.data_ptr(), R, C, H * W,
+                                 GN_EPS, out.data_ptr(), None)
+    assert rc == 0
+    assert out.is_contiguous(memory_format=CL) and not out.isnan().any()
+    return out
+
+
+def gn_inputs(seed, R, C, H, offset=0.0, std=1.0, with_skip=True):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((offset + std * rng.randn(R, H, H, C)).astype(np.float32))
+    x = x.to(torch.bfloat16).permute(0, 3, 1, 2)  # NHWC memory, NCHW shape
+    weight = torch.from_numpy((1 + 0.5 * rng.randn(C)).astype(np.float32))
+    bias = torch.from_numpy((0.5 * rng.randn(C)).astype(np.float32))
+    skip = None
+    if with_skip:
+        skip = torch.from_numpy(rng.randn(R, H, H, C).astype(np.float32))
+        skip = skip.to(torch.bfloat16).permute(0, 3, 1, 2)
+    return x, weight, bias, skip
+
+
+def check_group_norm(lib, x, weight, bias, skip, what, against_chain=True):
+    """1 bf16 ulp against exact math rounded once and 2 against PyTorch's
+    chain, as ``ops.group_norm.group_norm_ulps`` counts them."""
+    got = sim_group_norm(lib, x, weight, bias, skip)
+    exact_ulps, chain_ulps = group_norm_ulps(got, x, weight, bias, GN_EPS, skip, against_chain)
+    assert exact_ulps <= 1 and chain_ulps <= 2, (what, exact_ulps, chain_ulps)
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+@pytest.mark.parametrize("C", [32, 64, 128])
+@pytest.mark.parametrize("R", [1, 3])
+def test_sim_group_norm_matches_exact_math(sim, R, C, with_skip):
+    """Every served width below 256 on 11x11 (121 positions: the last warp's
+    share is short), with and without the skip."""
+    x, weight, bias, skip = gn_inputs(R * C, R, C, 11, with_skip=with_skip)
+    check_group_norm(sim, x, weight, bias, skip, f"R={R} C={C}")
+
+
+@pytest.mark.parametrize("C, n", [(256, 11), (64, 19), (32, 7), (128, 15)])
+def test_sim_group_norm_other_shapes(sim, C, n):
+    """The widest width, and other boards: 19x19 at 64 channels takes 23
+    warps, 7x7 at 32 channels two, 15x15 at 128 channels all 32."""
+    x, weight, bias, skip = gn_inputs(C + n, 2, C, n)
+    check_group_norm(sim, x, weight, bias, skip, f"C={C} {n}x{n}")
+
+
+def test_sim_group_norm_constant_group(sim):
+    """Groups of one repeated value (and of zeros): the variance is 0, eps
+    alone sets the scale, and the output is the bias through the ReLU
+    (plus the skip)."""
+    x, weight, bias, skip = gn_inputs(3, 2, 64, 11)
+    x[0, 2:4] = 1.5  # group 1 of row 0
+    x[1, 10:12] = 0.0  # group 5 of row 1
+    check_group_norm(sim, x, weight, bias, skip, "constant")
+    got = sim_group_norm(sim, x, weight, bias, None)
+    want = bias.clamp(min=0)[:, None, None].expand(64, 11, 11).to(torch.bfloat16)
+    assert torch.equal(got[0, 2:4], want[2:4]) and torch.equal(got[1, 10:12], want[10:12])
+
+
+@pytest.mark.parametrize("C", [32, 64, 128])
+def test_sim_group_norm_large_offset(sim, C):
+    """Mean far above the spread (1000 against 2): E[x^2] - E[x]^2 in float32
+    would lose the variance; the two-pass variance keeps it within 1 ulp.
+    PyTorch's CPU chain, the yardstick of the other cases, is itself tens
+    of ulps off here, so it is not compared."""
+    x, weight, bias, skip = gn_inputs(C, 3, C, 11, offset=1000.0, std=2.0)
+    check_group_norm(sim, x, weight, bias, skip, f"offset C={C}", against_chain=False)
+    check_group_norm(sim, x, weight, bias, None, f"offset C={C} bare", against_chain=False)
+    chain = group_norm_act_plain(x, GROUPS, weight, bias, GN_EPS)
+    ref = exact_group_norm(x, weight, bias, GN_EPS)[0]
+    assert (ordinal(chain) - ordinal(ref.float().to(torch.bfloat16))).abs().max() > 2
+
+
+@pytest.mark.parametrize("value", [2.0 ** -126, 1e-30, 1e-3, 0.3, 1.0, 1.5, 3.14, 255.0, 1000.0,
+                                   65504.0, 1e30, 3e38])
+def test_ulp_counting(value):
+    """The yardstick of the GroupNorm checks: a bf16 value and its neighbour
+    away from 0 lie 1 apart in :func:`ordinal`, on both sides of 0, and
+    :func:`bf16_ulp` is their spacing; +0 and -0 are the same point."""
+    for sign in (1, -1):
+        v = torch.tensor([sign * value]).to(torch.bfloat16)
+        out = (v.view(torch.int16) + 1).view(torch.bfloat16)  # one step in magnitude
+        assert int(ordinal(out) - ordinal(v)) == sign
+        assert float(bf16_ulp(v.abs())) == float((out.double() - v.double()).abs())
+    zeros = torch.tensor([0.0, -0.0]).to(torch.bfloat16)
+    assert ordinal(zeros).tolist() == [0, 0]
