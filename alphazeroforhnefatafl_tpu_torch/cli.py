@@ -19,6 +19,12 @@ line. Their flags are those of the JAX CLI plus ``--device``::
         --ckpt runs/cph/ckpt
     python -m alphazeroforhnefatafl_tpu_torch.cli bench
 
+``play``, ``selfplay``, ``train`` and ``ladder`` take the net's architecture
+as ``--channels``, ``--blocks``, ``--norm`` (``group``, ``none`` or
+``batch``) and ``--se-ratio`` (the SE unit of the ``batch`` trunk, 0 with
+the others): Leela Chess Zero's SE net at AlphaZero's width is ``--channels
+256 --blocks 20 --norm batch --se-ratio 8``.
+
 All run on the CUDA card unless ``--cpu`` (or ``--device cpu``) is given,
 and exit with an error when there is no card; ``play`` without ``--ai``
 runs only the host oracle and needs no card.
@@ -49,6 +55,27 @@ def _add_common(p):
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--cpu", action="store_true", help="same as --device cpu")
     p.add_argument("--seed", type=int, default=0)
+
+
+def _add_net(p, channels: int, blocks: int):
+    from .models.network import NORMS
+
+    p.add_argument("--channels", type=int, default=channels)
+    p.add_argument("--blocks", type=int, default=blocks)
+    p.add_argument("--norm", default="group", choices=NORMS)
+    p.add_argument("--se-ratio", type=int, default=0,
+                   help="SE unit ratio of --norm batch (channels / hidden units)")
+
+
+def _net(args, env):
+    """The flags' net, initialized from ``--seed`` on the CPU."""
+    import torch
+
+    from .models.network import init_params, make_network
+
+    net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm,
+                       se_ratio=args.se_ratio)
+    return init_params(net, torch.Generator().manual_seed(args.seed))
 
 
 def cmd_play(args):
@@ -106,23 +133,21 @@ def cmd_play(args):
 
 
 def _make_ai(args):
-    """An MCTS move chooser over the oracle game: a 32x3 net from ``--seed``,
-    ``--sims`` simulations, no root noise, on the flags' device."""
+    """An MCTS move chooser over the oracle game: the flags' net (32x3 by
+    default) from ``--seed``, ``--sims`` simulations, no root noise, on the
+    flags' device."""
     import torch
 
     from .core import actions as A
     from .core.env import TaflEnv
     from .core.oracle import Play
     from .core.rules import PRESETS
-    from .models.network import init_params, make_network
     from .search.mcts import MCTS, MCTSConfig
 
     device = _device(args)
     rules, board = PRESETS[args.preset]
     env = TaflEnv(rules, board, device)
-    net = make_network(env.n, channels=32, blocks=3)
-    init_params(net, torch.Generator().manual_seed(args.seed))
-    net = net.to(device).eval()
+    net = _net(args, env).to(device).eval()
     mcts = MCTS(env, net, MCTSConfig(num_simulations=args.sims, dirichlet_eps=0.0))
 
     def choose(game) -> Play:
@@ -145,16 +170,13 @@ def cmd_selfplay(args):
     import torch
 
     from .core.env import make_env
-    from .models.network import init_params, make_network
     from .search.mcts import MCTSConfig
     from .train.replay import ReplayBuffer
     from .train.selfplay import SelfPlayActor, SelfPlayConfig
 
     device = _device(args)
     env = make_env(args.preset, device)
-    net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm)
-    init_params(net, torch.Generator().manual_seed(args.seed))
-    net = net.to(device).eval()
+    net = _net(args, env).to(device).eval()
     sp_cfg = SelfPlayConfig(batch_size=args.batch)
     mcts_cfg = MCTSConfig(num_simulations=args.sims)
     actor = SelfPlayActor(env, net, mcts_cfg, sp_cfg, device=device)
@@ -191,6 +213,7 @@ def cmd_train(args):
         channels=args.channels,
         blocks=args.blocks,
         norm=args.norm,
+        se_ratio=args.se_ratio,
         arena_games=args.arena_games,
         checkpoint_dir=args.checkpoint_dir,
         seed=args.seed,
@@ -219,7 +242,8 @@ def cmd_ladder(args):
     env = make_env(args.preset, device)
 
     def fresh_state():
-        net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm)
+        net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm,
+                           se_ratio=args.se_ratio)
         return init_train_state(net, torch.Generator().manual_seed(args.seed), device)
 
     mgr = CheckpointManager(args.ckpt)
@@ -254,6 +278,7 @@ def main(argv=None):
     _add_common(p)
     p.add_argument("--ai", choices=["attacker", "defender"], default=None)
     p.add_argument("--sims", type=int, default=64)
+    _add_net(p, 32, 3)
     p.set_defaults(fn=cmd_play)
 
     p = sub.add_parser("selfplay", help="run self-play games")
@@ -261,9 +286,7 @@ def main(argv=None):
     p.add_argument("--games", type=int, default=8)
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--sims", type=int, default=32)
-    p.add_argument("--channels", type=int, default=32)
-    p.add_argument("--blocks", type=int, default=3)
-    p.add_argument("--norm", default="group", choices=["group", "none"])
+    _add_net(p, 32, 3)
     p.set_defaults(fn=cmd_selfplay)
 
     p = sub.add_parser("train", help="run the AlphaZero loop")
@@ -275,9 +298,7 @@ def main(argv=None):
     p.add_argument("--min-replay", type=int, default=256)
     p.add_argument("--sims", type=int, default=32)
     p.add_argument("--selfplay-batch", type=int, default=8)
-    p.add_argument("--channels", type=int, default=32)
-    p.add_argument("--blocks", type=int, default=3)
-    p.add_argument("--norm", default="group", choices=["group", "none"])
+    _add_net(p, 32, 3)
     p.add_argument("--arena-games", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--gumbel", action="store_true",
@@ -291,9 +312,7 @@ def main(argv=None):
     p.add_argument("--ckpt", required=True, help="checkpoint directory of a run")
     p.add_argument("--games", type=int, default=16)
     p.add_argument("--sims", type=int, default=64)
-    p.add_argument("--channels", type=int, default=64)
-    p.add_argument("--blocks", type=int, default=6)
-    p.add_argument("--norm", default="group", choices=["group", "none"])
+    _add_net(p, 64, 6)
     p.set_defaults(fn=cmd_ladder)
 
     p = sub.add_parser("bench", help="run the headline benchmark")

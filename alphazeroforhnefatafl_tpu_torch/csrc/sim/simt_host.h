@@ -60,6 +60,7 @@ struct State {
   int current = 0;
   int num_threads = 0;
   dim3 block_idx{0, 0, 0};
+  dim3 grid_dim{0, 0, 0};
   WarpState warps[kMaxWarps];
   int bar_arrived = 0, bar_departed = 0, bar_draining = 0;
   std::vector<uint4> dynamic;
@@ -129,6 +130,7 @@ inline void launch(int grid, int block, int dynamic_bytes, F body) {
     abort();
   }
   s.num_threads = block;
+  s.grid_dim = dim3{(unsigned)grid, 1, 1};
   s.body = body;
   s.dynamic.assign((dynamic_bytes + 15) / 16 + 1, uint4{0xdeadbeefu, 0xdeadbeefu, 0xdeadbeefu, 0xdeadbeefu});
   if ((int)s.fibers.size() < block) s.fibers.resize(block);
@@ -171,6 +173,7 @@ inline dim3 block_dim() { return dim3{(unsigned)state().num_threads, 1, 1}; }
 #define threadIdx (simt::thread_idx())
 #define blockDim (simt::block_dim())
 #define blockIdx (simt::state().block_idx)
+#define gridDim (simt::state().grid_dim)
 
 inline void __syncthreads() { simt::block_barrier(); }
 

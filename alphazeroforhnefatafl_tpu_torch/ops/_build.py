@@ -110,6 +110,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tafl_step.restype = i
     lib.tafl_group_norm_act.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p, p]
     lib.tafl_group_norm_act.restype = i
+    f = ctypes.c_float
+    lib.tafl_se_block.argtypes = [p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, p, p]
+    lib.tafl_se_block.restype = i
+    lib.tafl_bn_relu.argtypes = [p, p, p, p, p, f, i, i, i, p, p]
+    lib.tafl_bn_relu.restype = i
     return lib
 
 

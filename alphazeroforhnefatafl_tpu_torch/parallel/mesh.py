@@ -5,7 +5,8 @@ mesh.py`` that the loop uses. JAX lays a global array over a device mesh
 and lets XLA insert the psum; here each rank simply holds its slice, and
 the loop calls these few collectives itself:
 
-- :func:`replicate`: rank 0's parameters on every rank (one broadcast);
+- :func:`replicate`: rank 0's parameters and running statistics on every
+  rank (one broadcast);
 - :func:`mean_`: the mean over ranks of a list of tensors, in place (one
   flat ``all_reduce(SUM)`` and a division; ``ReduceOp.AVG`` is not on every
   backend for CUDA tensors);
@@ -43,9 +44,10 @@ def _unflatten_into(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None
 
 
 def replicate(module: nn.Module, group) -> None:
-    """Overwrite ``module``'s parameters with rank 0's, in one broadcast
-    (the nets' parameters are float32 and they hold no buffers)."""
+    """Overwrite ``module``'s parameters and floating buffers (batch norm's
+    running statistics) with rank 0's, in one broadcast (all float32)."""
     params = [p.data for p in module.parameters()]
+    params += [b for b in module.buffers() if b.is_floating_point()]
     flat = _flat(params)
     dist.broadcast(flat, src=0, group=group)
     _unflatten_into(flat, params)

@@ -1,5 +1,5 @@
 """MCTS throughput bench: simulations/s on 11x11 Copenhagen at any batch,
-budget, children, leaves, depth or trunk norm.
+budget, children, leaves, depth or net.
 
 The counterpart of the root ``scripts/bench_mcts.py``, with its flags and
 its JSON line (one per run). The searches are timed as the port's
@@ -24,14 +24,15 @@ import torch
 from ..bench import time_searches
 from ..cli import _device
 from ..core.env import make_env
-from ..models.network import init_params, make_network
+from ..models.network import NORMS, init_params, make_network
 from ..search.mcts import MCTSConfig
 from . import add_device_flags, note_tpu_flags
 
 
 def metric_name(batch, sims, children, chunk=0, node_read="auto", unroll=4,
-                norm="group", leaves=1, max_depth=64, recall=0.99) -> str:
-    """The metric's name, built as the JAX script builds it."""
+                norm="group", leaves=1, max_depth=64, recall=0.99, se_ratio=0) -> str:
+    """The metric's name, built as the JAX script builds it (the port's SE
+    net, which the JAX package has not, adds ``_se<ratio>``)."""
     return (
         f"mcts_sims_per_s_11x11_b{batch}_s{sims}_k{children}"
         + (f"_c{chunk}" if chunk else "")
@@ -40,6 +41,7 @@ def metric_name(batch, sims, children, chunk=0, node_read="auto", unroll=4,
         + (f"_r{recall}" if recall != 0.99 else "")
         + (f"_d{max_depth}" if max_depth != 64 else "")
         + ("_nf" if norm == "none" else "")
+        + (f"_se{se_ratio}" if norm == "batch" else "")
     )
 
 
@@ -52,17 +54,19 @@ def search_config(a: argparse.Namespace) -> MCTSConfig:
     )
 
 
-def bench(a: argparse.Namespace, device, channels: int = 64, blocks: int = 6) -> dict:
-    """One bench line: the flagship net (bf16 trunk, random weights from
-    seed 0) at the flags' trunk norm, searched under the flags' config."""
+def bench(a: argparse.Namespace, device) -> dict:
+    """One bench line: the flags' net (bf16 trunk, random weights from seed
+    0; by default the flagship's 64x6 GroupNorm net), searched under the
+    flags' config."""
     env = make_env("copenhagen", device)
-    net = make_network(env.n, channels=channels, blocks=blocks, norm=a.norm)
+    net = make_network(env.n, channels=a.channels, blocks=a.blocks, norm=a.norm,
+                       se_ratio=a.se_ratio)
     net = init_params(net, torch.Generator().manual_seed(0)).to(device).eval()
     compile_s, per_iter = time_searches(env, net, search_config(a), a.batch, a.iters)
     dt = min(per_iter)
     return {
         "metric": metric_name(a.batch, a.sims, a.children, a.chunk, a.node_read, a.unroll,
-                              a.norm, a.leaves, a.max_depth, a.recall),
+                              a.norm, a.leaves, a.max_depth, a.recall, a.se_ratio),
         "value": round(a.batch * a.sims / dt, 1),
         "unit": "sims/s",
         "compile_s": round(compile_s, 1),
@@ -84,8 +88,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="TPU node-read form; accepted and ignored")
     p.add_argument("--unroll", type=int, default=4,
                    help="TPU traversal unroll; accepted and ignored")
-    p.add_argument("--norm", default="group", choices=["group", "none"],
-                   help="'none' = norm-free NFResBlock trunk")
+    p.add_argument("--norm", default="group", choices=NORMS,
+                   help="'none' = norm-free NFResBlock trunk, 'batch' = the SE net")
+    p.add_argument("--se-ratio", type=int, default=0,
+                   help="SE unit ratio of --norm batch (channels / hidden units)")
+    p.add_argument("--channels", type=int, default=64)
+    p.add_argument("--blocks", type=int, default=6)
     p.add_argument("--leaves", type=int, default=1,
                    help="leaves per tree per wave (virtual-loss multi-leaf)")
     p.add_argument("--max-depth", type=int, default=64)

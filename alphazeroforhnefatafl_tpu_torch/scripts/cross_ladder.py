@@ -9,7 +9,7 @@ The counterpart of the root ``scripts/cross_ladder.py``::
         --anchors uniform,random --games 16 --sims 128
 
 Every entry is ``name=ckpt_dir:step`` (``step`` = integer, ``latest`` or
-``mid``); all entries share one net architecture (--channels/--blocks/--norm),
+``mid``); all entries share one net architecture (--channels/--blocks/--norm/--se-ratio),
 and each is restored into a net of its own. ``eval_run`` ladders within one
 run; this is its cross-run companion.
 """
@@ -30,6 +30,7 @@ from ..train.anchors import ANCHOR_CODES, make_anchored_evaluate
 from ..train.arena import ladder
 from ..train.checkpoint import CheckpointManager
 from . import add_device_flags
+from ..models.network import NORMS
 from .eval_run import fresh_net_factory
 
 
@@ -65,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--children", type=int, default=32)
     p.add_argument("--channels", type=int, default=64)
     p.add_argument("--blocks", type=int, default=6)
-    p.add_argument("--norm", default="group", choices=["group", "none"])
+    p.add_argument("--norm", default="group", choices=NORMS)
+    p.add_argument("--se-ratio", type=int, default=0,
+                   help="SE unit ratio of --norm batch (channels / hidden units)")
     p.add_argument("--max-game-len", type=int, default=256)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-init", action="store_true",

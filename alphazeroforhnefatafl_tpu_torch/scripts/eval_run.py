@@ -25,7 +25,7 @@ import torch
 
 from ..cli import _device
 from ..core.env import make_env
-from ..models.network import make_network
+from ..models.network import NORMS, make_network
 from ..search.mcts import MCTSConfig
 from ..train.anchors import ANCHOR_CODES, make_anchored_evaluate
 from ..train.arena import ladder
@@ -49,7 +49,8 @@ def fresh_net_factory(env, args, device):
     loads in place, so every ladder entry needs a state of its own."""
 
     def fresh():
-        net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm)
+        net = make_network(env.n, channels=args.channels, blocks=args.blocks, norm=args.norm,
+                           se_ratio=args.se_ratio)
         return init_train_state(net, torch.Generator().manual_seed(0), device)
 
     return fresh
@@ -64,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--children", type=int, default=32)
     p.add_argument("--channels", type=int, default=64)
     p.add_argument("--blocks", type=int, default=6)
-    p.add_argument("--norm", default="group", choices=["group", "none"])
+    p.add_argument("--norm", default="group", choices=NORMS)
+    p.add_argument("--se-ratio", type=int, default=0,
+                   help="SE unit ratio of --norm batch (channels / hidden units)")
     p.add_argument("--max-steps", type=int, default=8,
                    help="ladder size: evenly-spaced steps across the run")
     p.add_argument("--max-game-len", type=int, default=256)

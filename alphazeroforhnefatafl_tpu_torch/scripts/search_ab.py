@@ -30,6 +30,7 @@ from ..search.mcts import MCTSConfig
 from ..train.arena import play_config_match
 from ..train.checkpoint import CheckpointManager
 from . import add_device_flags
+from ..models.network import NORMS
 from .eval_run import fresh_net_factory
 
 #: The short names of a spec, and the fields they set.
@@ -76,7 +77,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--b", default="leaves=1,recall=0.99")
     p.add_argument("--channels", type=int, default=64)
     p.add_argument("--blocks", type=int, default=6)
-    p.add_argument("--norm", default="group", choices=["group", "none"])
+    p.add_argument("--norm", default="group", choices=NORMS)
+    p.add_argument("--se-ratio", type=int, default=0,
+                   help="SE unit ratio of --norm batch (channels / hidden units)")
     p.add_argument("--preset", default="copenhagen")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--out", default=None)

@@ -3,7 +3,8 @@
 The counterpart of ``alphazeroforhnefatafl_tpu/train/checkpoint.py``, with
 ``torch.save`` in place of Orbax. A checkpoint is one file per iteration,
 written under a temporary name and renamed, that captures the full loop
-state — the net's, optimizer's and schedule's ``state_dict``, the replay
+state — the net's (its running statistics with it), optimizer's and
+schedule's ``state_dict``, the replay
 buffer, the loop generator's state, the iteration and an ``extra`` dict (the
 gating incumbent) — so a restart resumes at the last iteration boundary.
 Every leaf is a tensor or a plain Python value, so the file loads with
@@ -25,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..models.network import architecture
 from .learner import TrainState
 from .replay import ReplayBuffer
 
@@ -60,7 +62,9 @@ def _clone(obj):
 
 
 def _check_architecture(where: str, net: torch.nn.Module, saved: Dict[str, torch.Tensor]) -> None:
-    """Raise unless ``saved`` has exactly the net's tensors, by name and shape."""
+    """Raise unless ``saved`` has exactly the net's tensors (parameters and
+    batch norm's running statistics), by name and shape; the error names
+    both architectures by their keys."""
     want = {k: tuple(v.shape) for k, v in net.state_dict().items()}
     got = {k: tuple(v.shape) for k, v in saved.items()}
     missing = sorted(set(want) - set(got))
@@ -78,9 +82,13 @@ def _check_architecture(where: str, net: torch.nn.Module, saved: Dict[str, torch
                 ],
             )
         )
+        def keys(state):
+            return " ".join(f"{k}={v}" for k, v in architecture(state).items())
+
         raise ValueError(
-            f"checkpoint {where} was saved with a different architecture than "
-            f"the net to restore into (check --channels/--blocks/--norm): {detail}"
+            f"checkpoint {where} was saved with a different architecture ({keys(saved)}) than "
+            f"the net to restore into ({keys(net.state_dict())}; check "
+            f"--channels/--blocks/--norm/--se-ratio): {detail}"
         )
 
 

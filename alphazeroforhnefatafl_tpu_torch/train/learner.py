@@ -154,18 +154,30 @@ def make_train_step(state: TrainState, group=None) -> Callable[[Batch], Dict[str
     the gradients and of the four loss metrics over the ranks, so the norm,
     the clip and the update are the global batch's (JAX's psum) and every
     rank's parameters stay bit-identical. ``group=None`` reduces nothing.
+
+    The step runs the net in training mode and leaves it in inference mode,
+    the mode it is built in: a batch-norm net normalises by the batch's
+    statistics and moves its running ones towards them. Across ranks each
+    rank's running statistics moved with its own slice; the same all-reduce
+    makes them their mean over the ranks, so every rank's net stays the same.
     """
     params = [p for p in state.net.parameters() if p.requires_grad]
+    stats = [b for b in state.net.buffers() if b.is_floating_point()]
 
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.net, batch)
-        loss.backward()
+        state.net.train()
+        try:
+            loss, metrics = loss_fn(state.net, batch)
+            loss.backward()
+        finally:
+            state.net.eval()
         grads = [p.grad for p in params]
         if group is not None:
-            # The four metrics ride in the gradients' collective.
+            # The four metrics and the running statistics ride in the
+            # gradients' collective.
             scalars = torch.stack(list(metrics.values()))
-            mean_(grads + [scalars], group)
+            mean_(grads + [scalars] + stats, group)
             metrics = dict(zip(metrics, scalars))
         norm = global_norm(grads)
         # Gradients are left alone below the bound and divided by exactly

@@ -51,9 +51,12 @@ class LoopConfig:
     learning_rate: float = 2e-3
     channels: int = 64
     blocks: int = 6
-    #: Trunk normalization: "group" or "none" (norm-free NFResBlock — see
-    #: models/network.py).
+    #: Trunk normalization: "group", "none" (norm-free NFResBlock) or
+    #: "batch" (the squeeze-excitation residual net; see models/network.py).
     norm: str = "group"
+    #: The SE unit's ratio of the "batch" trunk (channels / its hidden
+    #: units); 0 with the other trunks.
+    se_ratio: int = 0
     #: >0 enables arena gating: each iteration pits the freshly trained net
     #: against the incumbent best net over this many games, and self-play is
     #: generated by the INCUMBENT (AlphaGo-Zero-style best-net self-play) —
@@ -151,7 +154,8 @@ def run_loop(
     group = dist.group.WORLD if world_size > 1 else None
     rows = local_batch_slice(config.train_batch_size)  # raises on a remainder
 
-    net = make_network(env.n, channels=config.channels, blocks=config.blocks, norm=config.norm)
+    net = make_network(env.n, channels=config.channels, blocks=config.blocks, norm=config.norm,
+                       se_ratio=config.se_ratio)
     train_state = init_train_state(
         net, torch.Generator().manual_seed(config.seed), device,
         learning_rate=config.learning_rate,
@@ -183,6 +187,7 @@ def run_loop(
     # incumbent would pin data generation to the init forever.
     gated = config.arena_games > 0 and config.arena_every > 0
     # A frozen copy, never an alias: the optimizer updates the net in place.
+    # It only evaluates, in the inference mode it is copied in.
     incumbent = copy.deepcopy(net).requires_grad_(False)
     start_iter = 0
     if ckpt is not None and ckpt.latest_iteration() is not None:

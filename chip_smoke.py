@@ -44,7 +44,19 @@ Phases, in order; any failure exits non-zero:
    port does not call on this path), its launch counter exact; and the
    flagship bf16 net at 1,024 rows, which must launch it 14 times a forward
    with no plain call under ``inference_mode`` and take the plain chain at
-   all 14 sites with grad on, one line ``{"group_norm": {...}}``;
+   all 14 sites with grad on, one line ``{"group_norm": {...}}``; then the
+   SE net's two kernels (``csrc/se_block.cu``) alone at 256 channels on
+   11x11 and 512, 1,024 and 4,096 rows, within 1 bf16 ulp of exact math
+   rounded once (``ops.se_block.ulps_from_exact``), timed beside their byte
+   bounds and PyTorch's chains; the 20x256 SE net (ratio 8, bf16 trunk)
+   through ``make_network`` against its float32 reference
+   (``models/se_reference.py``) at 1,024 rows, its logits within
+   ``SE_LOGIT_TOL`` and its values within 5 times the gap of the reference
+   with a bf16 trunk, which an fp8 trunk must fail; 20 SE and 22 norm
+   launches a forward under ``inference_mode`` and no plain site, every
+   site on the chain in training mode with grad on; self-play, the arena
+   and ``cli play`` with it, counted a forward; one line
+   ``{"se_block": {...}}``;
 5. self-play at full width: 11x11 Copenhagen, a 64-channel 6-block
    GroupNorm net with a bf16 trunk and random weights from a seed,
    ``MCTSConfig()`` (128 simulations, 128 children), 256 games of at most 8
@@ -242,8 +254,11 @@ phase 18 ran, the same four across the cards (``across_cards``,
 ``across_cards_split_match_world1``; the ``torchrun`` ranks' launches are
 their processes' own and are not counted), and phase 19's
 (``whole_games``, ``whole_games_resign``); the GroupNorm kernel's entry
-adds ``plain_calls_by_path`` and its phase 4 times at 1,024 rows. The last
-line is ``{"ok": true, "device": {...}}``. Run it from the repository root::
+adds ``plain_calls_by_path`` and its phase 4 times at 1,024 rows; the SE
+net's two kernels (``se_block``, ``bn_relu``) give the same for phase 4's
+SE paths (the net's check, its learner's forward, self-play, the arena
+and play). The last line is ``{"ok": true, "device": {...}}``. Run it from
+the repository root::
 
     python3 chip_smoke.py
 
@@ -700,6 +715,265 @@ def phase_group_norm(device, card, rows=(512, 1024, 4096), net_rows=1024):
                     "logit_gap": gaps[0], "value_gap": gaps[1]}}
     print(json.dumps({"group_norm": line}), flush=True)
     return line
+
+
+SE_WIDTHS = dict(channels=256, blocks=20, norm="batch", se_ratio=8)  # the cell's net
+SE_SITES, BN_SITES = 20, 22  # SE kernel and norm kernel launches a forward of it
+#: The SE net's largest logit gap from its float32 reference over 1,024 rows
+#: of every action: 3.3x the bf16 program's 0.075 (measured on one H100),
+#: below the 0.71 of the reference with an fp8 trunk.
+SE_LOGIT_TOL = 0.25
+
+
+def read_se():
+    from alphazeroforhnefatafl_tpu_torch.ops.group_norm import group_norm_act
+    from alphazeroforhnefatafl_tpu_torch.ops.se_block import bn_relu, se_block
+
+    return {"se": se_block.launches, "bn": bn_relu.launches, "se_plain": se_block.plain_calls,
+            "bn_plain": bn_relu.plain_calls, "group_norm": group_norm_act.launches}
+
+
+def se_since(before):
+    return {k: v - before[k] for k, v in read_se().items()}
+
+
+def check_se(counts, what, forwards=None):
+    """Every forward an SE net's at the cell's widths in inference mode: the
+    SE kernel 20 times and the norm kernel 22 times a forward (``forwards``
+    of them where the caller counts them), no site on PyTorch's chain and
+    no GroupNorm launch."""
+    se, bn = counts["se"], counts["bn"]
+    n = se // SE_SITES if se and se % SE_SITES == 0 else None
+    if (n is None or bn != BN_SITES * n or counts["se_plain"] or counts["bn_plain"]
+            or counts["group_norm"] or (forwards is not None and n != forwards)):
+        fail(f"{what}: {counts}; want {SE_SITES} SE and {BN_SITES} norm launches a forward"
+             + ("" if forwards is None else f" over {forwards} forwards")
+             + ", no plain site, no GroupNorm launch")
+    return n
+
+
+def se_random_weights(net, seed):
+    """Random weights with the norms' affine and running statistics away
+    from 1 and 0 (as ``benchmark/reference/se_net.py`` draws them)."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch.models.network import init_params
+
+    g = torch.Generator().manual_seed(seed)
+    init_params(net, g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.copy_(1 + 0.1 * torch.randn(m.weight.shape, generator=g))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(torch.exp(0.3 * torch.randn(m.running_var.shape, generator=g)))
+            elif isinstance(m, torch.nn.Linear):
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=g))
+    return net
+
+
+def phase_se_net(device, card, rows=(512, 1024, 4096), net_rows=1024):
+    """The SE-ResNet's kernels (``csrc/se_block.cu``) at the cell's width (256
+    channels, 11x11): within 1 bf16 ulp of exact math rounded once
+    (``ops.se_block.ulps_from_exact``), their times beside their byte bounds
+    and PyTorch's chains (``library_ms``, which the port does not call on
+    this path), their counters exact. Then the net at its published widths
+    (20 blocks of 256 channels, ratio 8, bf16 trunk) through
+    ``make_network``, against the plain float32 reference
+    (``models/se_reference.py``) at 1,024 rows, beside the reference with a
+    bf16 and an fp8 trunk: 20 SE and 22 norm launches a forward under
+    ``inference_mode`` and no plain site, every site on the chain with grad
+    on in training mode. Then self-play, the arena and ``cli play`` with it,
+    counted a forward. One line ``{"se_block": {...}}``."""
+    import torch
+
+    from alphazeroforhnefatafl_tpu_torch import cli
+    from alphazeroforhnefatafl_tpu_torch.core.env import make_env
+    from alphazeroforhnefatafl_tpu_torch.models import se_reference
+    from alphazeroforhnefatafl_tpu_torch.models.network import make_network
+    from alphazeroforhnefatafl_tpu_torch.ops.se_block import (
+        bn_relu, bn_relu_plain, bn_relu_ulps, se_block, se_block_plain, se_block_ulps,
+    )
+    from alphazeroforhnefatafl_tpu_torch.search.mcts import MCTSConfig
+    from alphazeroforhnefatafl_tpu_torch.train.arena import play_match
+    from alphazeroforhnefatafl_tpu_torch.train.selfplay import SelfPlayActor, SelfPlayConfig
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    C, n, hidden, eps = 256, 11, 32, 1e-5
+
+    def nhwc(R):
+        return torch.randn(R, n, n, C, generator=gen, device=device).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+
+    def vec(scale, shift=0.0):
+        return shift + scale * torch.randn(C, generator=gen, device=device)
+
+    norm = [vec(0.3, 1.0), vec(0.3), vec(0.3),
+            torch.exp(vec(0.5))]
+    se = [torch.randn(hidden, C, generator=gen, device=device) / C ** 0.5,
+          0.1 * torch.randn(hidden, generator=gen, device=device),
+          torch.randn(2 * C, hidden, generator=gen, device=device) / hidden ** 0.5,
+          0.1 * torch.randn(2 * C, generator=gen, device=device)]
+    per_launch = 4 * (4 * C + hidden * C + hidden + 2 * C * hidden + 2 * C)
+    before = read_se()
+    calls = {"se": 0, "bn": 0}
+    cases = []
+    for R in rows:
+        y, x = nhwc(R), nhwc(R)
+
+        def se_call():
+            calls["se"] += 1
+            return se_block(y, x, *norm, eps, *se)
+
+        def bn_call():
+            calls["bn"] += 1
+            return bn_relu(y, *norm, eps)
+
+        for kernel, call, library, ulps, nbytes in (
+                ("se_block", se_call, lambda: se_block_plain(y, x, *norm, eps, *se),
+                 lambda got: se_block_ulps(got, y, x, *norm, eps, *se),
+                 R * 3 * n * n * C * 2 + per_launch),
+                ("bn_relu", bn_call, lambda: bn_relu_plain(y, *norm, eps),
+                 lambda got: bn_relu_ulps(got, y, *norm, eps), R * 2 * n * n * C * 2 + 4 * 4 * C)):
+            got = call()
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                fail(f"{kernel} R={R}: the output is not channels-last")
+            exact_ulps = ulps(got)
+            if exact_ulps > 1:
+                fail(f"{kernel} R={R}: {exact_ulps} ulps from exact math rounded once")
+            ms = time_ms(call)
+            dev_ms = time_ms(call, device_only=True)
+            library_ms = time_ms(library, device_only=True)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            cases.append(dict(kernel=kernel, rows=R, ms=ms, device_ms=dev_ms,
+                              library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
+                              exact_ulps=exact_ulps))
+            print(f"time {kernel} R={R} C={C} {n}x{n} on {card}: kernel {ms:.4f} ms per call "
+                  f"({dev_ms:.4f} ms of it on the card), PyTorch's chain {library_ms:.4f} ms on "
+                  f"the card; bound {nbytes} bytes / 3.35 TB/s = {bound_ms:.5f} ms, "
+                  f"{100 * bound_ms / dev_ms:.1f}% of it reached; {exact_ulps} ulps from exact "
+                  "math", flush=True)
+    counts = se_since(before)
+    if (counts["se"], counts["bn"]) != (calls["se"], calls["bn"]):
+        fail(f"se_block launches {counts}, calls {calls}")
+
+    # The net at its published widths against the reference.
+    env = make_env("copenhagen", device)
+    net = se_random_weights(make_network(env.n, dtype=torch.bfloat16, **SE_WIDTHS), SEED + 12)
+    net = net.to(device).eval()
+    boards = dense_boards(np.random.RandomState(SEED + 13), env.n, net_rows)
+    obs = env.observe(env.reset_batch(net_rows).replace(
+        board=torch.as_tensor(boards, device=device)))
+    w = {k: v.float() for k, v in net.state_dict().items()}
+    before = read_se()
+    with torch.inference_mode():
+        got = [t.double() for t in net(obs)]
+        torch.cuda.synchronize()
+        forward = se_since(before)
+        check_se(forward, "se net forward", forwards=1)
+        rounding = {"bf16": lambda t: t.to(torch.bfloat16).float(), "fp8": fp8_round}
+        want = [t.double() for t in se_reference.forward(w, obs, SE_WIDTHS["blocks"])]
+        trunk = {k: [t.double() for t in se_reference.forward(w, obs, SE_WIDTHS["blocks"],
+                                                               trunk=q)]
+                 for k, q in rounding.items()}
+
+    def z(v):
+        return torch.atanh(v.clamp(-1 + 1e-12, 1 - 1e-12))
+
+    def gaps(out):
+        logit = float((out[0] - want[0]).abs().max())
+        value = float(((z(out[1]) - z(want[1])) ** 2).mean().sqrt())
+        return logit, value
+
+    logit_gap, value_gap = gaps(got)
+    scale = gaps(trunk["bf16"])[1]
+    fp8_logit, fp8_value = gaps(trunk["fp8"])
+    # Tolerances: the program's bf16 trunk rounds each convolution's output
+    # and each block's output besides what the bf16 reference rounds, so
+    # its value error (before the tanh) is held to 5 times the bf16
+    # reference's, as the cell's value_gap_ratio is, and its logits to
+    # SE_LOGIT_TOL over 1,024 rows of every action; an fp8 trunk must fail
+    # at least one of the two.
+    ratio, fp8_ratio = value_gap / max(scale, 1e-12), fp8_value / max(scale, 1e-12)
+    if not (logit_gap <= SE_LOGIT_TOL and ratio <= 5.0):
+        fail(f"se net: logits {logit_gap} from the reference's (tolerance {SE_LOGIT_TOL}), "
+             f"value gap {ratio} of the bf16 reference's (tolerance 5)")
+    if fp8_logit <= SE_LOGIT_TOL and fp8_ratio <= 5.0:
+        fail(f"se net: an fp8 trunk passes the tolerances (logits {fp8_logit}, values "
+             f"{fp8_ratio})")
+    # Training mode with grad on: every site on PyTorch's chain.
+    before = read_se()
+    net.train()
+    with torch.enable_grad():
+        net(obs[:64])
+    net.eval()
+    train = se_since(before)
+    if train != {"se": 0, "bn": 0, "se_plain": SE_SITES, "bn_plain": BN_SITES, "group_norm": 0}:
+        fail(f"se net in training mode: {train}")
+    with torch.inference_mode():
+        forward_ms = time_ms(lambda: net(obs), reps=5, device_only=True)
+    print(f"se net on {card}: a forward at {net_rows} rows {forward_ms:.3f} ms on the card; "
+          f"logits {logit_gap:.4f} from the float32 reference (fp8 trunk {fp8_logit:.4f}), "
+          f"values {ratio:.3f} of the bf16 reference's gap (fp8 trunk {fp8_ratio:.3f})",
+          flush=True)
+
+    # The search paths: self-play, the arena, cli play.
+    forwards = {"n": 0}
+
+    def counted(obs):
+        forwards["n"] += 1
+        return net(obs)
+
+    paths, by_path = {}, {"net_check": forward, "learner": train}
+    actor = SelfPlayActor(env, counted, MCTSConfig(num_simulations=16, leaves_per_wave=2,
+                                                   max_children=32),
+                          SelfPlayConfig(batch_size=64), device)
+    states, temps = env.reset_batch(64), torch.ones(64, device=device)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    before = read_se()
+    for _ in range(2):
+        states = actor.move(states, temps, g)[0]
+    by_path["selfplay"] = se_since(before)
+    paths["selfplay"] = check_se(by_path["selfplay"], "se self-play", forwards["n"])
+    forwards["n"] = 0
+    before = read_se()
+    play_match(env, counted, counted, MCTSConfig(num_simulations=8, dirichlet_eps=0.0),
+               num_games=8, max_game_len=2)
+    by_path["arena"] = se_since(before)
+    paths["arena"] = check_se(by_path["arena"], "se arena", forwards["n"])
+    out, stdin = io.StringIO(), sys.stdin
+    before = read_se()
+    sys.stdin = io.StringIO("quit\n")
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(["play", "--preset", "copenhagen", "--ai", "attacker", "--sims", "8",
+                      "--channels", "256", "--blocks", "20", "--norm", "batch",
+                      "--se-ratio", "8"])
+    finally:
+        sys.stdin = stdin
+    if "AI plays" not in out.getvalue():
+        fail(f"se cli play: {out.getvalue()}")
+    by_path["play"] = se_since(before)
+    paths["play"] = check_se(by_path["play"], "se cli play")
+    line = {"card": card, "cases": cases,
+            "net": {"launches_a_forward": forward, "training_with_grad": train,
+                    "forward_ms_at_1024_rows": forward_ms,
+                    "logit_gap": logit_gap, "value_gap_ratio": ratio,
+                    "fp8_logit_gap": fp8_logit, "fp8_value_gap_ratio": fp8_ratio,
+                    "bf16_reference_value_gap": scale},
+            "forwards_by_path": paths, "counts_by_path": by_path}
+    print(json.dumps({"se_block": line}), flush=True)
+    return line
+
+
+def fp8_round(t):
+    """float8 e4m3 by a per-tensor scale, as ``benchmark/reference/net.py``'s
+    control rounds."""
+    import torch
+
+    scale = t.abs().amax().clamp(min=1e-30) / 448.0
+    return (t / scale).to(torch.float8_e4m3fn).float() * scale
 
 
 def phase_net_check(device):
@@ -3399,6 +3673,7 @@ def main(argv=None) -> int:
     phase_every_card(checker)
     times = phase_timing(device, checker, card)
     group_norm = phase_group_norm(device, card)
+    se_net = phase_se_net(device, card)
     phase_net_check(device)
 
     # Phase 5: self-play at full width through both kernels.
@@ -3545,6 +3820,30 @@ def main(argv=None) -> int:
         "bytes": at[1024, False]["bytes"],
         "with_skip": at[1024, True],
     })
+    # The SE net's two kernels at 1,024 rows, as the GroupNorm kernel; their
+    # paths are phase 4's: the net against its reference, its learner's
+    # forward (every site on the chain), self-play, the arena and play.
+    for name, key in (("se_block", "se"), ("bn_relu", "bn")):
+        cases = [c for c in se_net["cases"] if c["kernel"] == name]
+        se_at = {c["rows"]: c for c in cases}
+        by = se_net["counts_by_path"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "alphazeroforhnefatafl_tpu_torch/csrc/se_block.cu",
+            "replaces": None,
+            "launches": sum(c[key] for c in by.values()),
+            "launches_by_path": {path: c[key] for path, c in by.items()},
+            "plain_calls_by_path": {path: c[key + "_plain"] for path, c in by.items()},
+            "max_ulps_from_exact": max(c["exact_ulps"] for c in cases),
+            "ms": se_at[1024]["ms"],
+            "bound_ms": se_at[1024]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": se_at[1024]["library_ms"],
+            "device_ms": se_at[1024]["device_ms"],
+            "bytes": se_at[1024]["bytes"],
+            "at_rows": {r: c for r, c in se_at.items() if r != 1024},
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print_ok()
     return 0

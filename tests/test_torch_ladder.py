@@ -71,7 +71,9 @@ def test_config_match_agrees_with_jax_ply_by_ply(env, monkeypatch):
         return real_mask(states)
 
     monkeypatch.setattr(tarena, "_pick_actions", recording_pick)
-    monkeypatch.setattr(env, "legal_mask_many", recording_mask)
+    # Through the instance's dict: undone, it leaves no attribute on the
+    # env, which make_env shares with every later test.
+    monkeypatch.setitem(vars(env), "legal_mask_many", recording_mask)
     fake = torch_fake_evaluate(env)
     res = tarena.play_config_match(env, fake, fake, MCTSConfig(**cfg_c), MCTSConfig(**cfg_i),
                                    num_games=B, max_game_len=plies)
@@ -142,7 +144,7 @@ def test_play_match_plays_the_halving_winner_under_gumbel(env, monkeypatch):
 
     monkeypatch.setattr(MCTS, "search", recording_search)
     monkeypatch.setattr(tarena, "select_actions", no_sampling)
-    monkeypatch.setattr(env, "step_many", recording_step)
+    monkeypatch.setitem(vars(env), "step_many", recording_step)
     fake = torch_fake_evaluate(env)
     cfg = MCTSConfig(num_simulations=4, max_children=8, max_depth=8, root_selection="gumbel")
     res = tarena.play_match(env, fake, fake, cfg, num_games=4, max_game_len=3)
@@ -338,6 +340,7 @@ def test_cli_ladder_flags_match_the_jax_cli(monkeypatch):
 
     want, got = ladder_defaults(jcli), ladder_defaults(cli)
     assert got.pop("device") == "cuda"
+    assert got.pop("se_ratio") == 0  # the SE net's ratio: the JAX CLI has no such net
     assert got == want
 
 

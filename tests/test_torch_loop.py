@@ -331,7 +331,11 @@ def test_loop_config_has_the_jax_fields_and_defaults():
         if f.name in ("mcts", "selfplay"):
             continue
         assert getattr(LoopConfig(), f.name) == getattr(JaxLoopConfig(), f.name), f.name
-    assert set(mine) == {f.name for f in dataclasses.fields(JaxLoopConfig)}
+    # The port's one field more: the SE net's ratio, off by default (the JAX
+    # package has no squeeze-excitation net).
+    port_only = {"se_ratio": 0}
+    assert set(mine) == {f.name for f in dataclasses.fields(JaxLoopConfig)} | set(port_only)
+    assert all(getattr(LoopConfig(), k) == v for k, v in port_only.items())
     assert LoopConfig().mcts == MCTSConfig(num_simulations=64)
     assert LoopConfig().selfplay == SelfPlayConfig()
 
@@ -391,4 +395,5 @@ def test_cli_train_flags_match_the_jax_cli():
 
     want, got = train_defaults(jcli), train_defaults(cli)
     assert got.pop("device") == "cuda"
+    assert got.pop("se_ratio") == 0  # the SE net's ratio: the JAX CLI has no such net
     assert got == want
