@@ -5,8 +5,9 @@
 //
 // One CTA runs at a time. Each of its threads is a fiber (ucontext) on the
 // caller's OS thread, scheduled round-robin; a fiber yields only inside a
-// warp-wide call or a block barrier, until the others have arrived. Every
-// warp-wide call must name all 32 lanes, as the kernels' do.
+// warp-wide call or a block barrier, until the others have arrived, or in
+// an mbarrier wait. Every warp-wide call must name all 32 lanes, as the
+// kernels' do.
 #pragma once
 
 #include <ucontext.h>
@@ -17,12 +18,14 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <vector>
 
 #define __global__
+#define __host__
 #define __device__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct uint2 {
   uint32_t x, y;
@@ -54,6 +57,13 @@ struct WarpState {
   int arrived, departed, draining;
 };
 
+// An mbarrier as the bulk copies use it: the arrivals a phase expects, those
+// still to come in this one, and the phases completed.
+struct Mbarrier {
+  int count, pending;
+  unsigned completed;
+};
+
 struct State {
   std::vector<Fiber> fibers;
   ucontext_t scheduler;
@@ -64,6 +74,7 @@ struct State {
   WarpState warps[kMaxWarps];
   int bar_arrived = 0, bar_departed = 0, bar_draining = 0;
   std::vector<uint4> dynamic;
+  std::map<const void*, Mbarrier> mbarriers;  // the CTA's, by address
   std::function<void()> body;
 };
 
@@ -137,6 +148,7 @@ inline void launch(int grid, int block, int dynamic_bytes, F body) {
   for (int bx = 0; bx < grid; ++bx) {
     s.block_idx = dim3{(unsigned)bx, 0, 0};
     memset(s.warps, 0, sizeof(s.warps));
+    s.mbarriers.clear();
     s.bar_arrived = s.bar_departed = s.bar_draining = 0;
     for (int t = 0; t < block; ++t) {
       Fiber& f = s.fibers[t];
@@ -162,6 +174,53 @@ inline void launch(int grid, int block, int dynamic_bytes, F body) {
         abort();
       }
     }
+  }
+}
+
+// mbarriers and bulk copies into shared memory, synchronous: a copy lands
+// when it is issued, with its arrival, so a wait completes only once the
+// copy of its phase was issued; a wait that never completes (a wrong
+// parity, a copy never issued) aborts. Copies are checked for what the card
+// requires: 16-byte ends and sizes, a destination inside the CTA's dynamic
+// shared memory.
+inline Mbarrier& mbarrier(const void* bar) {
+  std::map<const void*, Mbarrier>& m = state().mbarriers;
+  auto it = m.find(bar);
+  if (it == m.end()) {
+    fprintf(stderr, "simt: an mbarrier used before its init\n");
+    abort();
+  }
+  return it->second;
+}
+
+inline void mbar_init(const void* bar, int count) {
+  state().mbarriers[bar] = Mbarrier{count, count, 0u};
+}
+
+inline void bulk_load(void* dst, const void* src, int bytes, const void* bar) {
+  State& s = state();
+  const char* lo = reinterpret_cast<const char*>(s.dynamic.data());
+  const char* d = reinterpret_cast<const char*>(dst);
+  if (((uintptr_t)dst | (uintptr_t)src | (uintptr_t)bytes) & 15u || bytes <= 0 || d < lo ||
+      d + bytes > lo + s.dynamic.size() * sizeof(uint4)) {
+    fprintf(stderr, "simt: a bulk copy of %d bytes to %p from %p is refused\n", bytes, dst, src);
+    abort();
+  }
+  Mbarrier& b = mbarrier(bar);
+  memcpy(dst, src, bytes);
+  if (--b.pending == 0) {  // the issuing thread's arrival; its bytes have landed
+    ++b.completed;
+    b.pending = b.count;
+  }
+}
+
+inline void mbar_wait(const void* bar, int parity) {
+  for (int spins = 0; (mbarrier(bar).completed & 1u) == (unsigned)parity; ++spins) {
+    if (spins > 100000) {
+      fprintf(stderr, "simt: an mbarrier phase never completes\n");
+      abort();
+    }
+    yield();
   }
 }
 
@@ -222,6 +281,10 @@ inline uint32_t __brev(uint32_t x) {
 }
 template <typename T>
 inline T __ldg(const T* p) {
+  return *p;
+}
+template <typename T>
+inline T __ldcs(const T* p) {
   return *p;
 }
 

@@ -56,6 +56,56 @@ static cudaError_t tafl_raise_smem_limit(Kernel kernel, int bytes,
 }
 #endif
 
+// Bulk copies (TMA's one-dimensional form) from global into shared memory,
+// each completing on an mbarrier: one thread inits the barrier with the
+// copies a phase takes (then a __syncthreads before anyone waits on it) and
+// issues each copy, which arrives on the barrier and adds its bytes to the
+// phase; every thread that reads the copy waits on that phase's parity.
+// Both ends of a copy and its size are multiples of 16 bytes.
+#ifndef TAFL_HOST_SIM
+__device__ __forceinline__ uint32_t tafl_smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void tafl_mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tafl_smem_addr(bar)),
+               "r"(count) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void tafl_bulk_load(void* dst, const void* src, int bytes,
+                                               uint64_t* bar) {
+  const uint32_t b = tafl_smem_addr(bar);
+  // Orders the CTA's earlier reads of dst (a barrier before this call
+  // ended them) before the copy engine's writes.
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(tafl_smem_addr(dst)), "l"(src), "r"(bytes), "r"(b) : "memory");
+}
+__device__ __forceinline__ void tafl_mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t b = tafl_smem_addr(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(b), "r"(parity) : "memory");
+  } while (!done);
+}
+#else
+__device__ __forceinline__ void tafl_mbar_init(uint64_t* bar, int count) {
+  simt::mbar_init(bar, count);
+}
+__device__ __forceinline__ void tafl_bulk_load(void* dst, const void* src, int bytes,
+                                               uint64_t* bar) {
+  simt::bulk_load(dst, src, bytes, bar);
+}
+__device__ __forceinline__ void tafl_mbar_wait(uint64_t* bar, int parity) {
+  simt::mbar_wait(bar, parity);
+}
+#endif
+
 // Cell codes (core/rules.py).
 #define TAFL_EMPTY 0
 #define TAFL_ATT 1

@@ -23,6 +23,9 @@ the host simulation's tests and ``chip_smoke.py`` judge the kernels by them.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -68,7 +71,9 @@ def se_block_plain(y: torch.Tensor, skip: torch.Tensor, weight, bias, mean, var,
     return F.relu(out).to(y.dtype)
 
 
-def _check_kernel_args(what, y, vectors, skip=None):
+def _check_kernel_args(what, y, vectors, align, skip=None):
+    """Raises unless the kernel takes these tensors: ``align`` is the
+    boundary, in bytes, that ``y`` and ``skip`` start on."""
     R, C, H, W = y.shape
     cl = torch.channels_last
     if y.dtype != torch.bfloat16 or not y.is_contiguous(memory_format=cl):
@@ -84,7 +89,6 @@ def _check_kernel_args(what, y, vectors, skip=None):
                              or skip.device != y.device
                              or not skip.is_contiguous(memory_format=cl)):
         raise ValueError(f"{what}: skip must be laid out as y")
-    align = 2 * C // 32  # the bytes of one lane's load
     if any(t.data_ptr() % align for t in (y, skip) if t is not None):
         raise ValueError(f"{what}: y and skip must start on a {align}-byte boundary")
 
@@ -108,7 +112,7 @@ def bn_relu(y: torch.Tensor, weight, bias, mean, var, eps: float) -> torch.Tenso
     vectors = [t.contiguous() for t in (weight, bias, mean, var)]
     if any(tuple(t.shape) != (C,) for t in vectors):
         raise ValueError("bn_relu: the norm's vectors must be [C]")
-    _check_kernel_args("bn_relu", y, vectors)
+    _check_kernel_args("bn_relu", y, vectors, 2 * C // 32)  # one lane's load
     out = torch.empty_like(y, memory_format=torch.channels_last)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -132,11 +136,45 @@ def se_block(y: torch.Tensor, skip: torch.Tensor, weight, bias, mean, var, eps: 
     ``[hidden, C]``, ``w2`` ``[2C, hidden]``: on the CPU
     :func:`se_block_plain`; on the card the kernel, which takes bf16 ``y``
     and ``skip`` contiguous channels-last and float32 vectors and matrices,
-    returns bf16 channels-last and raises on anything else."""
+    ``y``, ``skip``, ``w1`` and ``w2`` on 16-byte boundaries, returns bf16
+    channels-last and raises on anything else."""
     if y.device.type == "cpu":
         return se_block_plain(y, skip, weight, bias, mean, var, eps, w1, b1, w2, b2)
     if y.device.type != "cuda":
         raise ValueError(f"se_block: unsupported device {y.device}")
+    out = torch.empty_like(y, memory_format=torch.channels_last)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    with torch.cuda.device(y.device):
+        launch_se_block(_build.load_library(), y, skip, weight, bias, mean, var, eps,
+                        w1, b1, w2, b2, out, _sm_count(y.device.index), stream)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int | None) -> int:
+    return torch.cuda.get_device_properties(
+        torch.cuda.current_device() if index is None else index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def se_block_plan(lib, channels: int, hidden: int, positions: int) -> tuple[bool, int]:
+    """``(resident, smem_bytes)`` of the kernel's CTA at these shapes:
+    whether it holds the SE weights in shared memory, and its dynamic shared
+    memory; raises where the kernel does not serve them."""
+    smem = ctypes.c_int(0)
+    resident = lib.tafl_se_block_plan(channels, hidden, positions, ctypes.byref(smem))
+    if resident < 0:
+        raise ValueError(f"se_block: {channels} channels, hidden {hidden}, {positions} "
+                         "positions are not served")
+    return bool(resident), smem.value
+
+
+def launch_se_block(lib, y, skip, weight, bias, mean, var, eps, w1, b1, w2, b2, out, sms,
+                    stream) -> None:
+    """Checks the kernel's arguments, launches ``lib``'s ``tafl_se_block``
+    into ``out`` over at most ``sms`` SMs' worth of resident CTAs, and
+    counts the launch: :func:`se_block` on the card, the host simulation in
+    tests."""
     R, C, H, W = y.shape
     hidden = w1.shape[0]
     tensors = [t.contiguous() for t in (weight, bias, mean, var, w1, b1, w2, b2)]
@@ -144,23 +182,21 @@ def se_block(y: torch.Tensor, skip: torch.Tensor, weight, bias, mean, var, eps: 
     if [tuple(t.shape) for t in tensors] != shapes or not 1 <= hidden <= C:
         raise ValueError(f"se_block: the norm's and SE unit's shapes "
                          f"{[tuple(t.shape) for t in tensors]}, want {shapes}")
-    _check_kernel_args("se_block", y, tensors, skip)
-    out = torch.empty_like(y, memory_format=torch.channels_last)
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    weight, bias, mean, var, w1, b1, w2, b2 = tensors
-    with torch.cuda.device(y.device):
-        rc = lib.tafl_se_block(y.data_ptr(), skip.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                               mean.data_ptr(), var.data_ptr(), eps, w1.data_ptr(), b1.data_ptr(),
-                               w2.data_ptr(), b2.data_ptr(), hidden, R, C, H * W, out.data_ptr(),
-                               stream)
+    _check_kernel_args("se_block", y, tensors, 16, skip)  # a bulk copy's, a thread's load
+    if tensors[4].data_ptr() % 16 or tensors[6].data_ptr() % 16:
+        raise ValueError("se_block: w1 and w2 must start on a 16-byte boundary")
+    ptrs = [t.data_ptr() for t in tensors]
+    rc = lib.tafl_se_block(y.data_ptr(), skip.data_ptr(), *ptrs[:4], eps, *ptrs[4:], hidden, R, C,
+                           H * W, sms, out.data_ptr(), stream)
     _build.check(rc, "tafl_se_block")
     _count(se_block, R)
-    return out
+    if se_block_plan(lib, C, hidden, H * W)[0]:
+        se_block.resident_launches += 1
 
 
 se_block.launches = 0
 se_block.batches = {}  # launches by rows
+se_block.resident_launches = 0  # launches that held the SE weights in shared memory
 se_block.plain_calls = 0  # sites on the card that took the chain (models/network.py)
 
 

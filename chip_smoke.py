@@ -46,10 +46,13 @@ Phases, in order; any failure exits non-zero:
    with no plain call under ``inference_mode`` and take the plain chain at
    all 14 sites with grad on, one line ``{"group_norm": {...}}``; then the
    SE net's two kernels (``csrc/se_block.cu``) alone at 256 channels on
-   11x11 and 512, 1,024 and 4,096 rows, within 1 bf16 ulp of exact math
-   rounded once (``ops.se_block.ulps_from_exact``), timed beside their byte
-   bounds and PyTorch's chains; the 20x256 SE net (ratio 8, bf16 trunk)
-   through ``make_network`` against its float32 reference
+   11x11 and 64, 512, 1,024 and 4,096 rows, within 1 bf16 ulp of exact math
+   rounded once (``ops.se_block.ulps_from_exact``), bit-identical over two
+   launches, timed beside their byte bounds and PyTorch's chains, the SE
+   kernel also beside the one-CTA-a-row kernel it replaced
+   (``csrc/yardstick/se_block_one_row.cu``, built on its own), every SE
+   launch counted in ``se_block.resident_launches``; the 20x256 SE net
+   (ratio 8, bf16 trunk) through ``make_network`` against its float32 reference
    (``models/se_reference.py``) at 1,024 rows, its logits within
    ``SE_LOGIT_TOL`` and its values within 5 times the gap of the reference
    with a bf16 trunk, which an fp8 trunk must fail; 20 SE and 22 norm
@@ -729,7 +732,8 @@ def read_se():
     from alphazeroforhnefatafl_tpu_torch.ops.group_norm import group_norm_act
     from alphazeroforhnefatafl_tpu_torch.ops.se_block import bn_relu, se_block
 
-    return {"se": se_block.launches, "bn": bn_relu.launches, "se_plain": se_block.plain_calls,
+    return {"se": se_block.launches, "se_resident": se_block.resident_launches,
+            "bn": bn_relu.launches, "se_plain": se_block.plain_calls,
             "bn_plain": bn_relu.plain_calls, "group_norm": group_norm_act.launches}
 
 
@@ -739,15 +743,17 @@ def se_since(before):
 
 def check_se(counts, what, forwards=None):
     """Every forward an SE net's at the cell's widths in inference mode: the
-    SE kernel 20 times and the norm kernel 22 times a forward (``forwards``
-    of them where the caller counts them), no site on PyTorch's chain and
-    no GroupNorm launch."""
+    SE kernel 20 times, each launch holding the SE weights in shared memory,
+    and the norm kernel 22 times a forward (``forwards`` of them where the
+    caller counts them), no site on PyTorch's chain and no GroupNorm
+    launch."""
     se, bn = counts["se"], counts["bn"]
     n = se // SE_SITES if se and se % SE_SITES == 0 else None
-    if (n is None or bn != BN_SITES * n or counts["se_plain"] or counts["bn_plain"]
-            or counts["group_norm"] or (forwards is not None and n != forwards)):
-        fail(f"{what}: {counts}; want {SE_SITES} SE and {BN_SITES} norm launches a forward"
-             + ("" if forwards is None else f" over {forwards} forwards")
+    if (n is None or bn != BN_SITES * n or counts["se_resident"] != se or counts["se_plain"]
+            or counts["bn_plain"] or counts["group_norm"]
+            or (forwards is not None and n != forwards)):
+        fail(f"{what}: {counts}; want {SE_SITES} SE launches, all resident, and {BN_SITES} "
+             "norm launches a forward" + ("" if forwards is None else f" over {forwards} forwards")
              + ", no plain site, no GroupNorm launch")
     return n
 
@@ -773,12 +779,37 @@ def se_random_weights(net, seed):
     return net
 
 
-def phase_se_net(device, card, rows=(512, 1024, 4096), net_rows=1024):
+def build_se_yardstick():
+    """The SE kernel the port first ran (``csrc/yardstick/se_block_one_row.cu``:
+    one CTA a row, the weights read from L1 or L2 by every row), built on its
+    own with the library's nvcc flags, as the yardstick of ``tafl_se_block``."""
+    import ctypes
+
+    from alphazeroforhnefatafl_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "libtafl_se_one_row.so"
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{_build.CSRC_DIR}",
+           str(_build.CSRC_DIR / "yardstick" / "se_block_one_row.cu"), "-o", str(out)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        fail(f"the SE yardstick does not build: {proc.stderr[-2000:]}")
+    lib = ctypes.CDLL(str(out))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.tafl_se_block_one_row.argtypes = [p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, p, p]
+    lib.tafl_se_block_one_row.restype = i
+    return lib
+
+
+def phase_se_net(device, card, rows=(64, 512, 1024, 4096), net_rows=1024):
     """The SE-ResNet's kernels (``csrc/se_block.cu``) at the cell's width (256
     channels, 11x11): within 1 bf16 ulp of exact math rounded once
-    (``ops.se_block.ulps_from_exact``), their times beside their byte bounds
-    and PyTorch's chains (``library_ms``, which the port does not call on
-    this path), their counters exact. Then the net at its published widths
+    (``ops.se_block.ulps_from_exact``), the SE kernel bit-identical over two
+    launches, their times beside their byte bounds, PyTorch's chains
+    (``library_ms``, which the port does not call on this path) and, for the
+    SE kernel, the one-CTA-a-row kernel it replaced (:func:`build_se_yardstick`),
+    their counters exact, every SE launch holding its weights in shared
+    memory. Then the net at its published widths
     (20 blocks of 256 channels, ratio 8, bf16 trunk) through
     ``make_network``, against the plain float32 reference
     (``models/se_reference.py``) at 1,024 rows, beside the reference with a
@@ -816,6 +847,8 @@ def phase_se_net(device, card, rows=(512, 1024, 4096), net_rows=1024):
           torch.randn(2 * C, hidden, generator=gen, device=device) / hidden ** 0.5,
           0.1 * torch.randn(2 * C, generator=gen, device=device)]
     per_launch = 4 * (4 * C + hidden * C + hidden + 2 * C * hidden + 2 * C)
+    yardstick = build_se_yardstick()
+    stream = torch.cuda.current_stream(device).cuda_stream
     before = read_se()
     calls = {"se": 0, "bn": 0}
     cases = []
@@ -830,6 +863,17 @@ def phase_se_net(device, card, rows=(512, 1024, 4096), net_rows=1024):
             calls["bn"] += 1
             return bn_relu(y, *norm, eps)
 
+        one_row_out = torch.empty_like(y, memory_format=torch.channels_last)
+        ptrs = [t.data_ptr() for t in norm + se]
+
+        def one_row_call():
+            rc = yardstick.tafl_se_block_one_row(y.data_ptr(), x.data_ptr(), *ptrs[:4], eps,
+                                                 *ptrs[4:], hidden, R, C, n * n,
+                                                 one_row_out.data_ptr(), stream)
+            if rc != 0:
+                fail(f"the SE yardstick's launch: CUDA error {rc}")
+            return one_row_out
+
         for kernel, call, library, ulps, nbytes in (
                 ("se_block", se_call, lambda: se_block_plain(y, x, *norm, eps, *se),
                  lambda got: se_block_ulps(got, y, x, *norm, eps, *se),
@@ -842,21 +886,34 @@ def phase_se_net(device, card, rows=(512, 1024, 4096), net_rows=1024):
             exact_ulps = ulps(got)
             if exact_ulps > 1:
                 fail(f"{kernel} R={R}: {exact_ulps} ulps from exact math rounded once")
+            if not torch.equal(got, call()):
+                fail(f"{kernel} R={R}: two launches on the same inputs differ")
             ms = time_ms(call)
             dev_ms = time_ms(call, device_only=True)
             library_ms = time_ms(library, device_only=True)
             bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            cases.append(dict(kernel=kernel, rows=R, ms=ms, device_ms=dev_ms,
-                              library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes,
-                              exact_ulps=exact_ulps))
+            case = dict(kernel=kernel, rows=R, ms=ms, device_ms=dev_ms, library_ms=library_ms,
+                        bound_ms=bound_ms, bytes=nbytes, exact_ulps=exact_ulps)
+            yard = ""
+            if kernel == "se_block":
+                one_row_ulps = ulps(one_row_call())
+                if one_row_ulps > 1:
+                    fail(f"the SE yardstick R={R}: {one_row_ulps} ulps from exact math")
+                case["one_row_device_ms"] = time_ms(one_row_call, device_only=True)
+                yard = (f", the one-CTA-a-row kernel it replaced {case['one_row_device_ms']:.4f} "
+                        "ms on the card")
+            cases.append(case)
             print(f"time {kernel} R={R} C={C} {n}x{n} on {card}: kernel {ms:.4f} ms per call "
                   f"({dev_ms:.4f} ms of it on the card), PyTorch's chain {library_ms:.4f} ms on "
-                  f"the card; bound {nbytes} bytes / 3.35 TB/s = {bound_ms:.5f} ms, "
+                  f"the card{yard}; bound {nbytes} bytes / 3.35 TB/s = {bound_ms:.5f} ms, "
                   f"{100 * bound_ms / dev_ms:.1f}% of it reached; {exact_ulps} ulps from exact "
                   "math", flush=True)
     counts = se_since(before)
-    if (counts["se"], counts["bn"]) != (calls["se"], calls["bn"]):
+    if (counts["se"], counts["se_resident"], counts["bn"]) != (calls["se"], calls["se"],
+                                                               calls["bn"]):
         fail(f"se_block launches {counts}, calls {calls}")
+    print(f"se_block: {counts['se']} launches, {counts['se_resident']} of them with the weights "
+          "in shared memory", flush=True)
 
     # The net at its published widths against the reference.
     env = make_env("copenhagen", device)
@@ -909,7 +966,8 @@ def phase_se_net(device, card, rows=(512, 1024, 4096), net_rows=1024):
         net(obs[:64])
     net.eval()
     train = se_since(before)
-    if train != {"se": 0, "bn": 0, "se_plain": SE_SITES, "bn_plain": BN_SITES, "group_norm": 0}:
+    if train != {"se": 0, "se_resident": 0, "bn": 0, "se_plain": SE_SITES, "bn_plain": BN_SITES,
+                 "group_norm": 0}:
         fail(f"se net in training mode: {train}")
     with torch.inference_mode():
         forward_ms = time_ms(lambda: net(obs), reps=5, device_only=True)
@@ -3836,6 +3894,9 @@ def main(argv=None) -> int:
             "launches_by_path": {path: c[key] for path, c in by.items()},
             "plain_calls_by_path": {path: c[key + "_plain"] for path, c in by.items()},
             "max_ulps_from_exact": max(c["exact_ulps"] for c in cases),
+            **({"resident_launches": sum(c["se_resident"] for c in by.values()),
+                "one_row_device_ms": se_at[1024]["one_row_device_ms"]}
+               if name == "se_block" else {}),
             "ms": se_at[1024]["ms"],
             "bound_ms": se_at[1024]["bound_ms"],
             "bound_by": "bytes",

@@ -357,7 +357,8 @@ def sim(tmp_path_factory):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.tafl_se_block.argtypes = [p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, p, p]
+    lib.tafl_se_block.argtypes = [p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, i, p, p]
+    lib.tafl_se_block_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.tafl_bn_relu.argtypes = [p, p, p, p, p, f, i, i, i, p, p]
     return lib
 
@@ -365,9 +366,9 @@ def sim(tmp_path_factory):
 EPS = 1e-5
 
 
-def se_inputs(seed, R, Cn, n, saturate=False):
+def se_inputs(seed, R, Cn, n, saturate=False, ratio=RATIO):
     """bf16 channels-last ``y`` and skip ``x``, the norm's vectors and the SE
-    unit (ratio 8) as a trained net might hold them; ``saturate`` puts the
+    unit (``ratio``) as a trained net might hold them; ``saturate`` puts the
     gate's pre-activations at +-30, where the sigmoid is 0 or 1 in float32."""
     g = torch.Generator().manual_seed(seed)
 
@@ -377,7 +378,7 @@ def se_inputs(seed, R, Cn, n, saturate=False):
     y, x = nhwc(), nhwc()
     norm = [1 + 0.3 * torch.randn(Cn, generator=g), 0.3 * torch.randn(Cn, generator=g),
             0.3 * torch.randn(Cn, generator=g), torch.exp(0.5 * torch.randn(Cn, generator=g))]
-    H = Cn // RATIO
+    H = Cn // ratio
     w1, b1 = torch.randn(H, Cn, generator=g) / Cn ** 0.5, 0.1 * torch.randn(H, generator=g)
     w2, b2 = torch.randn(2 * Cn, H, generator=g) / H ** 0.5, 0.1 * torch.randn(2 * Cn, generator=g)
     if saturate:
@@ -390,12 +391,14 @@ def sim_out(shape):
     return torch.full((R, H, W, Cn), float("nan"), dtype=torch.bfloat16).permute(0, 3, 1, 2)
 
 
-def sim_se_block(lib, y, x, norm, se):
+def sim_se_block(lib, y, x, norm, se, sms=None):
+    """The SE kernel over ``sms`` CTAs (one a row by default: the simulation
+    holds one CTA an SM)."""
     R, Cn, H, W = y.shape
     out = sim_out(y.shape)
     rc = lib.tafl_se_block(y.data_ptr(), x.data_ptr(), *(t.data_ptr() for t in norm), EPS,
                            *(t.data_ptr() for t in se), se[0].shape[0], R, Cn, H * W,
-                           out.data_ptr(), None)
+                           R if sms is None else sms, out.data_ptr(), None)
     assert rc == 0 and not out.isnan().any()
     return out
 
@@ -411,9 +414,10 @@ def sim_bn_relu(lib, y, norm):
 
 @pytest.mark.parametrize("saturate", [False, True], ids=["gate", "saturated"])
 def test_sim_se_block_at_the_published_width(sim, saturate):
-    """256 channels on 11x11, the cell's shape (31 warps, the last one's
-    share short): within 1 ulp of exact math rounded once, as is the plain
-    chain; the saturated gate passes the norm whole or not at all."""
+    """256 channels on 11x11, the cell's shape (3,872 packs a row over 512
+    threads, the last ones' share short): within 1 ulp of exact math rounded
+    once, as is the plain chain; the saturated gate passes the norm whole or
+    not at all."""
     y, x, norm, se = se_inputs(256 + saturate, 2, 256, 11, saturate)
     got = sim_se_block(sim, y, x, norm, se)
     assert got.is_contiguous(memory_format=torch.channels_last)
@@ -448,3 +452,96 @@ def test_the_ulp_count_finds_a_wrong_block(sim):
                                                torch.cat([b2[:64], 0 * b2[64:]])])
     for got in (wrong_gate, no_shift):
         assert se_op.se_block_ulps(got, y, x, *norm, EPS, w1, b1, w2, b2) > 100
+
+
+@pytest.mark.parametrize("R, sms, Cn, n", [(5, 2, 256, 11), (7, 3, 64, 11), (4, 1, 32, 7)])
+def test_sim_se_block_several_rows_a_cta(sim, R, sms, Cn, n):
+    """Fewer CTAs than rows: each CTA walks several rows through its one
+    row buffer, its barrier's parity turning a row, rows not a multiple of
+    the grid; the result is the one-CTA-a-row result bit for bit, within 1
+    ulp of exact math."""
+    y, x, norm, se = se_inputs(R * Cn + n, R, Cn, n)
+    got = sim_se_block(sim, y, x, norm, se, sms=sms)
+    assert torch.equal(got, sim_se_block(sim, y, x, norm, se))
+    assert se_op.se_block_ulps(got, y, x, *norm, EPS, *se) <= 1
+
+
+def test_sim_se_block_weights_from_global_memory(sim):
+    """Ratio 4 at 256 channels on 11x11: the weights (198,912 bytes) do not
+    fit beside the row buffer, so the kernel reads them from global memory,
+    held to the same 1 ulp, several rows a CTA as in the resident path."""
+    assert not se_op.se_block_plan(sim, 256, 64, 121)[0]
+    y, x, norm, se = se_inputs(41, 3, 256, 11, ratio=4)
+    got = sim_se_block(sim, y, x, norm, se, sms=2)
+    assert se_op.se_block_ulps(got, y, x, *norm, EPS, *se) <= 1
+    assert torch.equal(got, sim_se_block(sim, y, x, norm, se))
+
+
+SMEM_BYTES = 232_448  # the most dynamic shared memory an H100 CTA may hold
+
+
+def test_the_kernel_plan_serves_the_whole_domain(sim):
+    """Every shape ``se_block_applies`` admits, at every hidden width, is a
+    launch within a CTA's shared memory; the weights are resident at the
+    cell's shape and up to 52 hidden at 256 channels on 11x11, where they
+    stop fitting beside the row of y, and always at 64 channels or fewer;
+    shapes outside the domain are refused."""
+    for Cn in se_op.CHANNELS:
+        top = se_op.max_positions(Cn)
+        for hw in sorted({1, 49, 81, 121, top}):
+            for hidden in range(1, Cn + 1):
+                resident, smem = se_op.se_block_plan(sim, Cn, hidden, hw)
+                assert 0 < smem <= SMEM_BYTES
+                assert resident or Cn > 64
+    assert se_op.se_block_plan(sim, 256, 32, 121) == (True, 169_744)
+    assert [se_op.se_block_plan(sim, 256, h, 121)[0] for h in (52, 53)] == [True, False]
+    for Cn, hidden, hw in [(96, 12, 121), (256, 0, 121), (256, 257, 121), (256, 32, 129),
+                           (32, 4, 1025)]:
+        with pytest.raises(ValueError):
+            se_op.se_block_plan(sim, Cn, hidden, hw)
+
+
+@pytest.fixture
+def counters(monkeypatch):
+    for name, value in (("launches", 0), ("batches", {}), ("resident_launches", 0)):
+        monkeypatch.setattr(se_op.se_block, name, value)
+    return se_op.se_block
+
+
+@pytest.mark.parametrize("Cn, ratio, resident", [(256, 8, True), (256, 4, False),
+                                                  (32, 8, True)])
+def test_the_wrapper_counts_each_launch(sim, counters, Cn, ratio, resident):
+    """``launch_se_block``, the card's path with the simulation's library:
+    one launch a call, counted by rows, and among ``resident_launches``
+    exactly where the weights fit shared memory."""
+    y, x, norm, se = se_inputs(Cn + ratio, 3, Cn, 11, ratio=ratio)
+    out = sim_out(y.shape)
+    se_op.launch_se_block(sim, y, x, *norm, EPS, *se, out, 2, None)
+    assert (counters.launches, counters.batches) == (1, {3: 1})
+    assert counters.resident_launches == int(resident)
+    assert se_op.se_block_ulps(out, y, x, *norm, EPS, *se) <= 1
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flat = torch.empty(y.numel() + 1, dtype=torch.bfloat16)[1:]
+        shifted = flat.view(3, 11, 11, Cn).permute(0, 3, 1, 2).copy_(y)
+        se_op.launch_se_block(sim, shifted, x, *norm, EPS, *se, out, 2, None)
+    assert counters.launches == 1
+
+
+def test_a_forward_launches_once_a_site(sim, counters, monkeypatch):
+    """A forward of the SE net through the wrapper's launch (the simulation
+    standing in for the card) makes one launch a block, each resident at
+    ratio 8 and within 1 ulp of exact math."""
+    def se(y, skip, *args):
+        out = sim_out(y.shape)
+        se_op.launch_se_block(sim, y, skip, *args, out, 2, None)
+        assert se_op.se_block_ulps(out, y, skip, *args) <= 1
+        return out
+
+    net = se_net(seed=21, dtype=torch.bfloat16, blocks=3).eval()
+    obs = observations(11, 3, seed=22)
+    with torch.inference_mode():
+        monkeypatch.setattr(tnetwork, "se_block_applies", lambda *facts: True)
+        monkeypatch.setattr(tnetwork, "se_block", se)
+        monkeypatch.setattr(tnetwork, "bn_relu", lambda y, *args: se_op.bn_relu_plain(y, *args))
+        net(obs)
+    assert (counters.launches, counters.resident_launches, counters.batches) == (3, 3, {3: 3})
